@@ -8,19 +8,37 @@ Phases; any failure exits non-zero and prints no result line:
 1. checks: a CUDA device, the card's name and power limit (nvidia-smi), and
    the build of every kernel in ``imgadapointr_tpu_torch/csrc``;
 2. every kernel against its plain PyTorch version on the card, at each
-   shape one serving request gives it, plus edge probes (identical clouds,
-   dense sphere, all-equal points, out-of-range gather indices). Indices
-   must be equal and values bit-equal (tolerance 0): each kernel repeats
-   its plain version's arithmetic. Each kernel, its plain version and,
-   where one PyTorch call computes the same function, that call are timed
-   with CUDA events over one request's calls;
+   shape one serving request (batch ``B``) and one train step (batch
+   ``B_TRAIN``) give it (the one-direction argmin: one test cloud), plus
+   edge probes (identical clouds, dense sphere, all-equal points,
+   out-of-range indices, masks).
+   Indices must be equal and values bit-equal (tolerance 0): each kernel
+   repeats its plain version's arithmetic. The scatter-add sums with
+   float32 atomics in no fixed order, so it is held to 1e-5 of each
+   element's sum of absolute contributions, and to bit-equality where
+   every row receives one contribution. Each kernel, its plain version
+   and, where one PyTorch call computes the same function, that call are
+   timed with CUDA events over one serving request's calls (the
+   scatter-add: one train step's; the one-direction argmin: one test
+   cloud's);
 3. the serving path at full width: ``cfgs/PCN_models/AdaPoinTr.yaml`` with
    seeded weights answers ``REQUESTS`` requests of ``B`` synthetic PCN
    partial clouds (2048 points) with coarse (512) and fine (16384)
    clouds, scored by CD-L1, CD-L2 and F-Score against the 16384-point
    ground truth. The launch counts of that run must equal the calls the
    request table predicts, and one request is held against the same
-   model run on the CPU through the plain versions.
+   model run on the CPU through the plain versions;
+4. the training path at full width: the ``Runner`` on the same config at
+   batch 16 (2048 -> 512 + 16384, 64 denoise queries) takes 1 warm-up and
+   ``TRAIN_STEPS`` timed steps on ``SyntheticPCN``, then validates on 2
+   clouds and runs the test protocol on 2 clouds at batch size 1 (the
+   masked chamfer path). Losses and gradient norms must be finite, the
+   query-ranking parameters untouched and every other one changed, the
+   launches of the train steps, of validate and of test equal to the
+   tables derived from the config, a checkpoint must
+   read back bit-equal, and one step at batch 2 must agree with the same
+   step on the CPU through the plain versions (loss 1e-4, gradient norm
+   1e-3, relative).
 
 Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.
@@ -30,18 +48,25 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 
 from imgadapointr_tpu_torch import ops
 from imgadapointr_tpu_torch.datasets import SyntheticPCN
+from imgadapointr_tpu_torch.main import swap_synthetic
 from imgadapointr_tpu_torch.models import build_model
 from imgadapointr_tpu_torch.ops import _build
+from imgadapointr_tpu_torch.tools import runner as port_runner
+from imgadapointr_tpu_torch.tools.builder import dataset_builder
+from imgadapointr_tpu_torch.utils.checkpoint import load_checkpoint
 from imgadapointr_tpu_torch.utils.config import cfg_from_yaml_file
 from imgadapointr_tpu_torch.utils.metrics import eval_metric_suite
 
@@ -49,6 +74,10 @@ CONFIG = "cfgs/PCN_models/AdaPoinTr.yaml"
 N_PARTIAL = 2048
 B = 8  # clouds per request
 REQUESTS = 3
+B_TRAIN = 16  # the config's total_bs
+TRAIN_STEPS = 5
+DENOISE = 64  # denoise queries of a train step
+EVAL_CLOUDS = 2  # clouds validated, and clouds tested, at batch size 1
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 # float32 outside the tensor cores (the kernels do no matrix products).
 PEAK_BYTES = 3.35e12
@@ -67,7 +96,13 @@ SOURCES = {
             "imgadapointr_tpu/ops/pallas/fps.py:71"),
     "gather_rows": ("imgadapointr_tpu_torch/csrc/gather_rows.cu",
                     "imgadapointr_tpu/ops/pallas/gather_rows.py:179"),
+    "scatter_add_rows": ("imgadapointr_tpu_torch/csrc/scatter_add_rows.cu",
+                         "imgadapointr_tpu/ops/pallas/scatter_rows.py:109"),
+    "nn_one_direction": ("imgadapointr_tpu_torch/csrc/nn_one_direction.cu",
+                         "imgadapointr_tpu/ops/pallas/nn_distance.py:93"),
 }
+PORTED_KERNEL_NAMES = ("nn_bidir", "knn_kernel", "fps_kernel", "gather_rows",
+                       "scatter_add_rows", "nn_one_direction")
 
 
 def log(*a):
@@ -101,6 +136,67 @@ def request_calls(cfg) -> dict:
             "nn_bidir_argmin": [(n_fine, n_fine)]}
 
 
+def train_step_calls(cfg) -> dict:
+    """Each kernel's calls in one train step (forward in train mode, the
+    three chamfer losses, backward), per batch element count, from the
+    model config. scatter_add_rows (rows, C, S): the chamfer cross term of
+    each predicted cloud (the ground truth needs no gradient, so its cross
+    term is not computed) and the backward of every gather whose table
+    needs a gradient."""
+    n1, n2 = (int(n) for n in cfg.center_num)
+    nq, n_fine = int(cfg.num_query), int(cfg.num_points)
+    enc, dec = cfg.encoder_config, cfg.decoder_config
+    C, ke, kd, kg = int(enc.embed_dim), int(enc.k), int(dec.k), 16
+    n_cand, L, Q = nq + nq // 2, DENOISE, nq + DENOISE
+    factor = n_fine // nq
+    N = N_PARTIAL
+    n_enc = sum("graph" in s for s in enc.block_style_list)
+    n_self = sum("graph" in s for s in dec.self_attn_block_style_list)
+    n_cross = sum("graph" in s for s in dec.cross_attn_block_style_list)
+    knn = [(kg, N, N), (kg, n1, N), (kg, n1, n1), (kg, n2, n1), (ke, n2, n2), (kd, Q, n2)]
+    knn += [(kd, nq, nq), (kd, L, Q)] * n_self  # two-phase search, per graph block
+    knn += [(factor, L, n_fine)]  # denoise targets
+    fps = [(N, n1), (n1, n2), (N, nq // 2), (N, L)]
+    # gathers whose table needs a gradient: their backward is one scatter each
+    grad_gathers = [(N, 32, n1), (N, 32, n1 * kg), (n1, 64, n1 * kg), (n1, 64, n2),
+                    (n1, 64, n2 * kg), (n_cand, 3, nq)]
+    grad_gathers += [(n2, C, n2 * ke)] * n_enc
+    grad_gathers += [(nq, C, nq * kd), (Q, C, L * kd)] * n_self
+    grad_gathers += [(n2, C, Q * kd)] * n_cross
+    chamfer = [(L * factor, L * factor), (nq, n_fine), (n_fine, n_fine)]  # (pred, target)
+    gather = [(N, 3, N * kg), (N, 3, n1), (n1, 3, n2),  # grouper coordinates
+              (N, 3, nq // 2), (N, 3, L), (n_fine, 3, L * factor)]  # seeds, denoise targets
+    gather += grad_gathers
+    for n_pred, n_gt in chamfer:  # residuals of both directions
+        gather += [(n_gt, 3, n_pred), (n_pred, 3, n_gt)]
+    scatter = [(n_pred, 3, n_gt) for n_pred, n_gt in chamfer] + grad_gathers
+    return {"knn": knn, "fps": fps, "gather_rows": gather, "nn_bidir_argmin": chamfer,
+            "scatter_add_rows": scatter, "nn_one_direction": []}
+
+
+def eval_calls(cfg, protocol: str) -> dict:
+    """Each kernel's calls for one cloud of ``validate`` or ``test``: one
+    eval request, the coarse cloud's chamfer against the ground truth and,
+    in ``test`` at batch size 1, the masked chamfer of the fine cloud (two
+    one-direction passes and their residual gathers)."""
+    nq, n_fine = int(cfg.num_query), int(cfg.num_points)
+    calls = {k: list(v) for k, v in request_calls(cfg).items()}
+    calls["nn_bidir_argmin"].append((nq, n_fine))
+    calls["gather_rows"] += [(n_fine, 3, nq), (nq, 3, n_fine)]
+    calls.update(scatter_add_rows=[], nn_one_direction=[])
+    if protocol == "test":
+        calls["nn_one_direction"] = [(n_fine, n_fine)] * 2
+        calls["gather_rows"] += [(n_fine, 3, n_fine)] * 2
+    return calls
+
+
+def batched(calls, extra) -> list:
+    """(batch, shape) cases of a phase-2 check: the serving request's calls
+    at batch ``B`` first (the timed ones), then the train step's shapes at
+    ``B_TRAIN``, each once."""
+    return [(B, c) for c in calls] + [(B_TRAIN, c) for c in dict.fromkeys(extra)]
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` in ms over ``reps`` runs after a warm-up."""
     fn()
@@ -127,9 +223,9 @@ def sphere(g, b, n, dev):
 # ------------------------------------------------------------ phase 2 checks
 
 
-def check_knn(calls, g, dev):
-    inputs = [(k, torch.randn(B, M, 3, generator=g).to(dev), torch.randn(B, S, 3, generator=g).to(dev))
-              for k, S, M in calls]
+def check_knn(calls, extra, g, dev):
+    inputs = [(k, torch.randn(b, M, 3, generator=g).to(dev), torch.randn(b, S, 3, generator=g).to(dev))
+              for b, (k, S, M) in batched(calls, extra)]
     err = 0.0
     for k, ref, q in inputs:
         d, i = ops.knn_with_distance(k, ref, q)
@@ -137,6 +233,7 @@ def check_knn(calls, g, dev):
         require(torch.equal(i, pi), f"knn k={k} {tuple(q.shape)}x{tuple(ref.shape)}: indices differ")
         err = max(err, float((d - pd).abs().max()))
     require(err == 0.0, f"knn distances differ by {err}")
+    inputs = inputs[:len(calls)]
     t = {
         "ms": cuda_ms(lambda: [ops.knn_with_distance(k, r, q) for k, r, q in inputs], 20),
         "plain_ms": cuda_ms(lambda: [ops.knn_plain(k, r, q) for k, r, q in inputs], 5),
@@ -147,8 +244,8 @@ def check_knn(calls, g, dev):
     return err, t, pairs * OPS_PAIR_ONE_WAY, nbytes
 
 
-def check_fps(calls, g, dev):
-    inputs = [(torch.randn(B, N, 3, generator=g).to(dev), n) for N, n in calls]
+def check_fps(calls, extra, g, dev):
+    inputs = [(torch.randn(b, N, 3, generator=g).to(dev), n) for b, (N, n) in batched(calls, extra)]
     err = 0.0
     for xyz, n in inputs:
         diff = ops.furthest_point_sample(xyz, n) - ops.fps_plain(xyz, n)
@@ -158,6 +255,7 @@ def check_fps(calls, g, dev):
     require(torch.equal(ops.furthest_point_sample(same, 512),
                         torch.zeros(B, 512, dtype=torch.int64, device=dev)),
             "fps on identical points must pick index 0 throughout")
+    inputs = inputs[:len(calls)]
     t = {
         "ms": cuda_ms(lambda: [ops.furthest_point_sample(x, n) for x, n in inputs], 20),
         "plain_ms": cuda_ms(lambda: [ops.fps_plain(x, n) for x, n in inputs], 2),
@@ -170,11 +268,11 @@ def check_fps(calls, g, dev):
     return err, t, n_ops, nbytes
 
 
-def check_gather(calls, g, dev):
+def check_gather(calls, extra, g, dev):
     inputs = []
-    for M, C, S in calls:
-        table = torch.randn(B, M, C, generator=g).to(dev)
-        idx = torch.randint(0, M, (B, S), generator=g).to(dev)
+    for b, (M, C, S) in batched(calls, extra):
+        table = torch.randn(b, M, C, generator=g).to(dev)
+        idx = torch.randint(0, M, (b, S), generator=g).to(dev)
         inputs.append((table, idx))
     for M, C, S in ((2048, 3, 4096), (512, 64, 8192), (512, 384, 4096)):  # clamp probes
         table = torch.randn(B, M, C, generator=g).to(dev)
@@ -189,6 +287,7 @@ def check_gather(calls, g, dev):
         got = ops.gather_rows(table, idx)
         err = max(err, float((got - ops.gather_rows_plain(table, idx)).abs().max()))
         require(err == 0.0, f"gather {tuple(table.shape)} S={idx.shape[1]}: values differ")
+    inputs = inputs[:len(calls)]
     rows = [torch.arange(B, device=dev)[:, None] for _ in inputs]
     t = {
         "ms": cuda_ms(lambda: [ops.gather_rows(tb, i) for tb, i in inputs], 50),
@@ -202,13 +301,15 @@ def check_gather(calls, g, dev):
     return err, t, 0, nbytes
 
 
-def check_bidir(calls, g, dev):
+def check_bidir(calls, extra, g, dev):
+    err = 0.0
+    for b, (N, M) in reversed(batched(calls, extra)):  # ends on the request's clouds, timed below
+        x, y = torch.randn(b, N, 3, generator=g).to(dev), torch.randn(b, M, 3, generator=g).to(dev)
+        i1, i2 = ops.nn_bidir_argmin(x, y)
+        p1, p2 = ops.nn_bidir_argmin_plain(x, y)
+        err = max(err, float((i1 - p1).abs().max()), float((i2 - p2).abs().max()))
+        require(err == 0.0, f"nn_bidir_argmin random {b}x{N}x{M}: indices differ")
     (N, M), = calls
-    x, y = torch.randn(B, N, 3, generator=g).to(dev), torch.randn(B, M, 3, generator=g).to(dev)
-    i1, i2 = ops.nn_bidir_argmin(x, y)
-    p1, p2 = ops.nn_bidir_argmin_plain(x, y)
-    err = float(max((i1 - p1).abs().max(), (i2 - p2).abs().max()))
-    require(err == 0.0, "nn_bidir_argmin random: indices differ")
     s1, s2 = sphere(g, 2, N, dev), sphere(g, 2, M, dev)
     i1, i2 = ops.nn_bidir_argmin(s1, s2)
     p1, p2 = ops.nn_bidir_argmin_plain(s1, s2)
@@ -225,6 +326,94 @@ def check_bidir(calls, g, dev):
         "library_ms": None,
     }
     return err, t, B * N * M * OPS_PAIR_BIDIR, B * (N + M) * 12 + B * (N + M) * 8
+
+
+def check_scatter(calls, extra, g, dev):
+    """scatter_add_rows at every shape one train step issues, at batch
+    B_TRAIN, plus the mirror direction of each chamfer cross term."""
+    Bt = B_TRAIN
+    shapes = list(calls) + [(S, C, rows) for rows, C, S in calls[:3]]
+    inputs, err = [], 0.0
+    for rows, C, S in shapes:
+        idx = torch.randint(0, rows, (Bt, S), generator=g).to(dev)
+        vals = torch.randn(Bt, S, C, generator=g).to(dev)
+        inputs.append((rows, idx, vals))
+        got = ops.scatter_add_rows(rows, idx, vals)
+        want = ops.scatter_add_rows_plain(rows, idx, vals)
+        room = 1e-5 * ops.scatter_add_rows_plain(rows, idx, vals.abs())
+        require(bool(((got - want).abs() <= room).all()),
+                f"scatter_add_rows rows={rows} C={C} S={S}: beyond 1e-5 of the absolute sum")
+        err = max(err, float((got - want).abs().max()))
+    for C in (3, 384):  # a permutation: every row receives one contribution
+        n = 16384 if C == 3 else 4608
+        idx = torch.stack([torch.randperm(n, generator=g) for _ in range(Bt)]).to(dev)
+        vals = torch.randn(Bt, n, C, generator=g).to(dev)
+        got = ops.scatter_add_rows(n, idx, vals)
+        require(torch.equal(got, ops.scatter_add_rows_plain(n, idx, vals)),
+                f"scatter_add_rows permutation C={C}: not bit-equal")
+        require(torch.equal(ops.gather_rows(got, idx), vals), "scatter then gather is not the identity")
+    vals = torch.randn(2, 16384, 3, generator=g).to(dev)  # 16384 contributions to one row
+    got = ops.scatter_add_rows(512, torch.full((2, 16384), 7, device=dev), vals)
+    require(bool(((got[:, 7] - vals.double().sum(1).float()).abs() <= 1e-5 * vals.abs().sum(1)).all()),
+            "scatter_add_rows, all indices equal: beyond 1e-5 of the absolute sum")
+    got[:, 7] = 0.0
+    require(int(got.count_nonzero()) == 0, "all indices equal: other rows touched")
+    idx = torch.randint(-4, 516, (2, 4096), generator=g).to(dev)  # out-of-range indices clamp
+    idx[:, :3] = torch.tensor([-1, 512, 512 + 10**6])
+    vals = torch.randn(2, 4096, 8, generator=g).to(dev)
+    got, want = ops.scatter_add_rows(512, idx, vals), ops.scatter_add_rows_plain(512, idx, vals)
+    require(bool(((got - want).abs() <= 1e-5 * ops.scatter_add_rows_plain(512, idx, vals.abs())).all()),
+            "scatter_add_rows clamp: differs")
+    step = inputs[:len(calls)]
+    offs = [(i + torch.arange(Bt, device=dev)[:, None] * r).reshape(-1) for r, i, _ in step]
+
+    def library():
+        for (r, _, v), off in zip(step, offs):
+            torch.zeros(Bt * r, v.shape[-1], device=dev).index_add_(0, off, v.reshape(-1, v.shape[-1]))
+
+    t = {
+        "ms": cuda_ms(lambda: [ops.scatter_add_rows(r, i, v) for r, i, v in step], 20),
+        "plain_ms": cuda_ms(lambda: [ops.scatter_add_rows_plain(r, i, v) for r, i, v in step], 20),
+        "library_ms": cuda_ms(library, 20),
+    }
+    # values and indices read once, the output written once; one add per value
+    nbytes = sum(Bt * (S * (C * 4 + 8) + rows * C * 4) for rows, C, S in calls)
+    return err, t, sum(Bt * S * C for _, C, S in calls), nbytes
+
+
+def check_one_direction(calls, extra, g, dev):
+    """nn_one_direction: unmasked at the chamfer losses' sizes (equal to
+    the plain version and to the bidirectional kernel's first direction),
+    then masked, and timed over one test cloud's two masked passes."""
+    for N, M in ((16384, 16384), (512, 16384)):
+        x, y = torch.randn(2, N, 3, generator=g).to(dev), torch.randn(2, M, 3, generator=g).to(dev)
+        i = ops.nn_one_direction(x, y)
+        require(torch.equal(i, ops.nn_one_direction_plain(x, y)), f"nn_one_direction {N}x{M}: differs from plain")
+        require(torch.equal(i, ops.nn_bidir_argmin(x, y)[0]), f"nn_one_direction {N}x{M}: differs from bidir i1")
+    (N, M), = set(calls)
+    x, y = sphere(g, 2, N, dev), sphere(g, 2, M, dev)
+    wy = (torch.rand(2, M, generator=g) > 0.5).float().to(dev)
+    i = ops.nn_one_direction(x, y, wy)
+    require(torch.equal(i, ops.nn_one_direction_plain(x, y, wy)), "nn_one_direction random mask: differs")
+    require(bool(wy.gather(1, i).eq(1).all()), "nn_one_direction: an invalid y won")
+    one = torch.zeros(2, M, device=dev)
+    one[0, 12345], one[1, M - 1] = 1.0, 1.0
+    i = ops.nn_one_direction(x, y, one)
+    require(bool(i[0].eq(12345).all() and i[1].eq(M - 1).all()), "nn_one_direction: one valid y must win everywhere")
+    require(torch.equal(i, ops.nn_one_direction_plain(x, y, one)), "nn_one_direction one valid y: differs")
+    x, y = torch.randn(1, N, 3, generator=g).to(dev), torch.randn(1, M, 3, generator=g).to(dev)
+    wx, wy = torch.ones(1, N, device=dev), torch.ones(1, M, device=dev)
+
+    def both(fn):
+        return lambda: (fn(x, y, wy), fn(y, x, wx))
+
+    t = {
+        "ms": cuda_ms(both(ops.nn_one_direction), 10),
+        "plain_ms": cuda_ms(both(ops.nn_one_direction_plain), 2),
+        "library_ms": cuda_ms(lambda: (torch.cdist(x, y).argmin(-1), torch.cdist(y, x).argmin(-1)), 10),
+    }
+    pairs = sum(n * m for n, m in calls)
+    return 0.0, t, pairs * OPS_PAIR_ONE_WAY, sum((n + m) * 12 + m * 4 + n * 8 for n, m in calls)
 
 
 # ------------------------------------------------------------- phase 3 path
@@ -272,15 +461,18 @@ def cpu_agreement(model, cpu_model, partial, gt, dev) -> dict:
     return out
 
 
-def profile_request(model, cfg, batch, dev) -> dict:
-    """Device time of one request by kernel name (torch.profiler), the
-    four ported kernels' share of it, and the device's idle share of the
-    request's wall time."""
+def profile_run(run) -> dict:
+    """Device time of ``run()`` (which returns its wall seconds, ending in
+    a synchronise) by kernel name (torch.profiler), the ported kernels'
+    share of it, and the device's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        secs, _ = serve(model, cfg, [batch], dev)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall = run()
+    # device events without the profiler's own annotations (e.g. the
+    # optimizer's step range, which is no kernel)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and not e.name.startswith("Optimizer.")]
     if not kernels:
         return {"device_time": "not measured: the profiler saw no device activity"}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -292,14 +484,163 @@ def profile_request(model, cfg, batch, dev) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     total = sum(by_name.values())
-    ours = sum(v for k, v in by_name.items() if any(n in k for n in ("nn_bidir", "knn_kernel", "fps_kernel", "gather_rows")))
+    ours = {n: sum(v for k, v in by_name.items() if n in k) / 1e3 for n in PORTED_KERNEL_NAMES}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {
-        "wall_ms": secs[0] * 1e3, "device_busy_ms": busy / 1e3, "kernel_sum_ms": total / 1e3,
-        "idle_share": 1.0 - busy / 1e3 / (secs[0] * 1e3),
-        "ported_kernels_share": ours / total, "launches": len(kernels),
-        "top": [[k[:80], v / 1e3] for k, v in top],
+        "wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3, "kernel_sum_ms": total / 1e3,
+        "idle_share": 1.0 - busy / 1e3 / (wall * 1e3),
+        "ported_kernels_share": sum(ours.values()) * 1e3 / total, "ported_kernels_ms": ours,
+        "launches": len(kernels), "top": [[k[:80], v / 1e3] for k, v in top],
     }
+
+
+# ------------------------------------------------------------ phase 4 path
+
+
+def timed_step(runner, batch, epoch_f, noise=None):
+    """One ``Runner.train_step`` between synchronises: (seconds, metrics as floats)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = runner.train_step(batch, epoch_f, noise=noise)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, {k: float(v) for k, v in m.items()}
+
+
+def check_launches(what: str, want: dict, times: int) -> dict:
+    """The launch counts since the last reset against ``times`` runs of the
+    call table ``want``; returns the counts."""
+    got = _build.launches()
+    for name in _build.KERNELS:
+        require(got[name] == len(want[name]) * times,
+                f"{name}: {got[name]} launches in {what}, the table says {len(want[name]) * times}")
+    return got
+
+
+def train_phase(config, seed: int, dev, workdir: str) -> dict:
+    """Phase 4: train steps, validate, test, checkpoint round trip through
+    the runner; returns the launch counts of each part and the summary of
+    the timed steps."""
+    cfg = config.model
+    swap_synthetic(config, train_len=B_TRAIN * (TRAIN_STEPS + 2))
+    config.dataset.train.others.bs = B_TRAIN
+    for split in ("val", "test"):
+        config.dataset[split].LENGTH = EVAL_CLOUDS
+        config.dataset[split].others.bs = 1
+    args = types.SimpleNamespace(device="cuda", seed=seed, num_workers=0, emd=False,
+                                 experiment_path=workdir)
+    _, train_loader = dataset_builder(args, config.dataset.train)
+    _, val_loader = dataset_builder(args, config.dataset.val)
+    _, test_loader = dataset_builder(args, config.dataset.test)
+    t0 = time.perf_counter()
+    runner = port_runner.Runner(args, config, logger="silent")
+    runner.make_train_state(len(train_loader))
+    model = runner.model
+    log(f"phase 4: runner built on {dev} in {time.perf_counter() - t0:.1f} s; "
+        f"{len(train_loader)} batches of {B_TRAIN} x {N_PARTIAL} -> {int(cfg.num_points)}")
+    batches = [b for _, _, b in train_loader]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    bn = model.increase_dim[1]
+    bn_before = (bn.running_mean.clone(), bn.running_var.clone())
+    calls = train_step_calls(cfg)
+
+    secs, _ = timed_step(runner, batches[0], 0.0)  # warm-up (cuBLAS handles, caches)
+    log(f"phase 4: warm-up step {secs * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    times = []
+    for i, batch in enumerate(batches[1:1 + TRAIN_STEPS]):
+        secs, m = timed_step(runner, batch, (i + 1) / len(train_loader))
+        times.append(secs)
+        require(all(np.isfinite(v) for v in m.values()), f"step {i}: non-finite {m}")
+        log(f"phase 4: step {i}: {secs * 1e3:.1f} ms; sparse {m['sparse_loss']:.5f} dense "
+            f"{m['dense_loss']:.5f} grad norm {m['grad_norm']:.4f} lr {m['lr']:.3e}")
+    counts = {"train": check_launches("the train steps", calls, TRAIN_STEPS)}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 4: median step {statistics.median(times) * 1e3:.1f} ms at batch {B_TRAIN}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; launches per step "
+        f"{json.dumps({k: v // TRAIN_STEPS for k, v in counts['train'].items()})}")
+
+    dead = ("query_ranking", "encoder.norm")  # no gradient by construction / never applied
+    for name, p in model.named_parameters():
+        if any(d in name for d in dead):
+            require(p.grad is None and torch.equal(p, before[name]), f"{name} was touched")
+        else:
+            require(not torch.equal(p, before[name]), f"{name} did not change in {TRAIN_STEPS + 1} steps")
+    require(not torch.equal(bn.running_mean, bn_before[0]) and not torch.equal(bn.running_var, bn_before[1]),
+            "BN running statistics did not change")
+
+    path = runner.save("ckpt-smoke", 0, None, None)
+    other = port_runner.Runner(args, config, logger="silent")
+    other.make_train_state(len(train_loader))
+    meta = load_checkpoint(path, other.model, other.optimizer)
+    require(meta["step"] == TRAIN_STEPS + 1, f"checkpoint step {meta['step']}")
+    for (n, a), (_, b) in zip(model.state_dict().items(), other.model.state_dict().items()):
+        require(torch.equal(a, b), f"checkpoint: {n} differs")
+    want, got = runner.optimizer.state_dict(), other.optimizer.state_dict()
+    require(want["param_groups"] == got["param_groups"] and want["state"].keys() == got["state"].keys(),
+            "checkpoint: optimizer layout differs")
+    for k, st in want["state"].items():
+        for field, v in st.items():
+            other_v = got["state"][k][field]
+            require(v.device == other_v.device and torch.equal(v, other_v),
+                    f"checkpoint: optimizer state {k}.{field} differs")
+    log(f"phase 4: checkpoint round trip bit-equal ({len(want['state'])} parameters with moments)")
+    del other
+
+    _build.reset_launches()
+    metrics = port_runner.validate(runner, val_loader, 0, "silent")
+    counts["validate"] = check_launches("validate", eval_calls(cfg, "validate"), EVAL_CLOUDS)
+    _build.reset_launches()
+    scores = port_runner.test(runner, test_loader, args, config, "silent")
+    counts["test"] = check_launches("test", eval_calls(cfg, "test"), EVAL_CLOUDS)
+    require(all(np.isfinite(v) for v in metrics.state_dict().values()), f"validate: {metrics}")
+    require(all(np.isfinite(v) for v in scores.values()), f"test: {scores}")
+    log(f"phase 4: validate on {EVAL_CLOUDS} clouds: {metrics}; test on {EVAL_CLOUDS} clouds at "
+        f"batch 1 (masked path, {counts['test']['nn_one_direction']} one-direction launches): "
+        + json.dumps({k: float(v) for k, v in scores.items()}))
+
+    batch = batches[1 + TRAIN_STEPS]
+    prof = profile_run(lambda: timed_step(runner, batch, 0.9)[0])
+    log("phase 4: one profiled train step: " + json.dumps(prof))
+    summary = {"batch": B_TRAIN, "step_ms": [t * 1e3 for t in times],
+               "median_step_ms": statistics.median(times) * 1e3,
+               "max_memory_allocated_gib": peak / 2**30,
+               "profiled_step": {k: v for k, v in prof.items() if k != "top"}}
+    return counts, summary
+
+
+def card_vs_cpu_step(config, seed: int, workdir: str) -> dict:
+    """One train step at batch 2 and full width on the card against the
+    same step on the CPU through the plain versions: same weights, batch
+    and jitter noise. The last ranking layer is scaled by 1000 on both (as
+    the JAX package's parity harness does): at a random init the ranking
+    scores nearly tie, and float32 rounding would otherwise pick different
+    queries on the two devices."""
+    out, grads = {}, {}
+    data = SyntheticPCN({"N_POINTS": int(config.model.num_points), "N_PARTIAL": N_PARTIAL,
+                         "LENGTH": 2, "SEED": seed + 1, "others": {"subset": "train"}})
+    samples = [data.get(i, None)[2] for i in range(2)]
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples])) for k in ("partial", "gt")}
+    noise = torch.randn(2, DENOISE, 3, generator=torch.Generator().manual_seed(seed))
+    for device in ("cuda", "cpu"):
+        args = types.SimpleNamespace(device=device, seed=seed, experiment_path=workdir)
+        runner = port_runner.Runner(args, config, logger="silent")
+        runner.make_train_state(1)
+        with torch.no_grad():
+            runner.model.base_model.query_ranking[4].weight.mul_(1000.0)
+        m = runner.train_step(batch, 0.0, noise=noise)
+        out[device] = {k: float(m[k]) for k in ("total_loss", "grad_norm")}
+        grads[device] = {n: p.grad.detach().cpu() for n, p in runner.model.named_parameters()
+                         if p.grad is not None}
+    # the gradients themselves (unclipped: the norm is under the clip's 10)
+    diff = {n: float((g - grads["cpu"][n]).norm()) for n, g in grads["cuda"].items()}
+    out["grad_diff_over_norm"] = sum(d * d for d in diff.values()) ** 0.5 / out["cpu"]["grad_norm"]
+    out["grad_diff_worst"] = sorted(((d / out["cpu"]["grad_norm"], n) for n, d in diff.items()), reverse=True)[:3]
+    for k, tol in (("total_loss", 1e-4), ("grad_norm", 1e-3)):
+        rel = abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+        out[f"{k}_rel_diff"] = rel
+        require(rel <= tol, f"card vs CPU: {k} differs by {rel:.2e} relative (limit {tol})")
+    return out
 
 
 def main(argv=None) -> int:
@@ -327,14 +668,24 @@ def main(argv=None) -> int:
     # ---- phase 2: each kernel against its plain version
     cfg = cfg_from_yaml_file(CONFIG).model
     calls = request_calls(cfg)
+    n_fine = int(cfg.num_points)
+    # the kernels serving does not run: one train step's scatters, and the
+    # two masked passes of one test cloud at batch size 1
+    train_calls = train_step_calls(cfg)
+    check_calls = dict(calls, scatter_add_rows=train_calls["scatter_add_rows"],
+                       nn_one_direction=[(n_fine, n_fine)] * 2)
+    # a train step's shapes of the kernels serving times, compared at B_TRAIN
+    extra = {name: train_calls[name] for name in calls}
     g = torch.Generator().manual_seed(args.seed)
     checks = {"knn": check_knn, "fps": check_fps, "gather_rows": check_gather,
-              "nn_bidir_argmin": check_bidir}
+              "nn_bidir_argmin": check_bidir, "scatter_add_rows": check_scatter,
+              "nn_one_direction": check_one_direction}
     results = {}
     for name, check in checks.items():
-        results[name] = err, t, _, _ = check(calls[name], g, dev)
-        log(f"phase 2: {name}: equal to plain over {len(calls[name])} request shapes "
-            f"and probes; per request {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
+        results[name] = err, t, _, _ = check(check_calls[name], extra.get(name, []), g, dev)
+        n_shapes = len(batched(check_calls[name], extra.get(name, [])))
+        log(f"phase 2: {name}: agrees with plain over {n_shapes} shapes "
+            f"and probes (max abs err {err:.3g}); {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
             f"library {t['library_ms']})")
 
     # ---- phase 3: the serving path at full width
@@ -354,11 +705,8 @@ def main(argv=None) -> int:
     serve(model, cfg, batches[:1], dev)  # warm-up request (cuBLAS handles, caches)
     _build.reset_launches()
     secs, scores = serve(model, cfg, batches[1:], dev)
-    launches = _build.launches()
-    for name in _build.KERNELS:
-        want = len(calls[name]) * REQUESTS
-        require(launches[name] == want,
-                f"{name}: {launches[name]} launches on the main path, request table says {want}")
+    launches = check_launches("the serving requests",
+                              dict(calls, scatter_add_rows=[], nn_one_direction=[]), REQUESTS)
     for r, (s, (f, l1, l2)) in enumerate(zip(secs, scores)):
         log(f"phase 3: request {r}: {B}x{N_PARTIAL} -> {B}x{int(cfg.num_points)} in {s * 1e3:.1f} ms; "
             f"CD-L1 {l1:.4f} CD-L2 {l2:.4f} F@0.01 {f:.4f} (x1000 for CD)")
@@ -373,7 +721,20 @@ def main(argv=None) -> int:
             "the card's clouds disagree with the CPU's")
     require(abs(agree["cd_l1_card"] - agree["cd_l1_cpu"]) <= 1e-2 * agree["cd_l1_cpu"],
             "the card's CD-L1 disagrees with the CPU's")
-    log("phase 3: one profiled request: " + json.dumps(profile_request(model, cfg, batches[1], dev)))
+    prof = profile_run(lambda: serve(model, cfg, [batches[1]], dev)[0][0])
+    log("phase 3: one profiled request: " + json.dumps(prof))
+    serve_summary = {"batch": B, "median_request_ms": statistics.median(secs) * 1e3,
+                     "device_busy_ms": prof.get("device_busy_ms"), "launches": prof.get("launches")}
+    del model
+
+    # ---- phase 4: the training path at full width
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        counts, train_summary = train_phase(cfg_from_yaml_file(CONFIG), args.seed, dev, workdir)
+        agree = card_vs_cpu_step(cfg_from_yaml_file(CONFIG), args.seed, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("phase 4: card vs CPU, one step at batch 2: " + json.dumps(agree))
 
     kernels = []
     for name in _build.KERNELS:
@@ -382,12 +743,20 @@ def main(argv=None) -> int:
         src, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "launches_per_request": launches[name] // REQUESTS,
+            # over the four driven paths; each path's counts were read on their own
+            "launches": launches[name] + sum(c[name] for c in counts.values()),
+            "launches_per_request": launches[name] // REQUESTS,
+            "launches_per_train_step": counts["train"][name] // TRAIN_STEPS,
+            "launches_validate": counts["validate"][name], "launches_test": counts["test"][name],
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
             "library_ms": t["library_ms"],
         })
+    # the two paths' readings again, so that the end of the output carries them
+    log("summary: " + json.dumps({"card": card, "serving": serve_summary, "training": train_summary,
+                                  "card_vs_cpu_step": {k: agree[k] for k in (
+                                      "total_loss_rel_diff", "grad_norm_rel_diff")}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,6 +5,7 @@ imports nothing of it (and no JAX). Layout mirrors it: ``ops/`` (geometry
 ops, each kernel-backed op with a plain PyTorch version beside it),
 ``csrc/`` (the hand-written CUDA kernels, built at first use by
 ``ops/_build.py``), ``nn/``, ``models/``, ``utils/``, ``datasets/``,
-``tools/``. This slice covers the AdaPoinTr serving path in eval mode and
-the eval metrics.
+``tools/``. Ported so far: the flagship AdaPoinTr's serving path with the
+eval metrics, and its training path (losses, backward, AdamW, schedules,
+checkpoints, the train / validate / test runner; entry point ``main.py``).
 """

@@ -48,6 +48,11 @@ class SyntheticPCN:
     def __len__(self):
         return self.length
 
+    def __getitem__(self, idx: int):
+        """``(taxonomy_id, model_id, {'partial', 'gt'})``: a map-style
+        dataset for ``torch.utils.data.DataLoader``."""
+        return self.get(idx, None)
+
     def get(self, idx: int, rng: np.random.Generator):
         # deterministic per (seed, idx): the sample ignores the pipeline rng
         srng = np.random.default_rng(self.seed * 100003 + idx)

@@ -1,10 +1,12 @@
-"""AdaPoinTr, the flagship completion model, eval form.
+"""AdaPoinTr, the flagship completion model.
 
 Counterpart of ``imgadapointr_tpu/models/adapointr.py:35-116`` for
 ``decoder_type: fc``: PCTransformer core, ``increase_dim`` (1x1 conv -> BN
 -> LeakyReLU -> 1x1 conv, then a max), ``reduce_map`` over cat(global,
 token, coarse), the FC rebuild head, and ``rebuild_points + coarse``.
-Returns ``(coarse (B, num_query, 3), fine (B, num_points, 3))``.
+In eval mode it returns ``(coarse (B, num_query, 3), fine (B, num_points,
+3))``; in train mode ``(pred_coarse, denoised_coarse, denoised_fine,
+pred_fine)``, the last ``DENOISE_LENGTH`` queries being the denoise task's.
 """
 
 from __future__ import annotations
@@ -46,17 +48,24 @@ class AdaPoinTr(nn.Module):
         self.reduce_map = ConcatDense((1024, trans_dim, 3), trans_dim)
         self.decode_head = SimpleRebuildFCLayer(trans_dim * 2, step=rebuild_factor(config))
 
-    def forward(self, xyz: torch.Tensor):
-        if self.training:
-            raise NotImplementedError(
-                "AdaPoinTr training forward is part of the training slice (ROADMAP Queue 1)"
-            )
-        q, coarse = self.base_model(xyz)
-        B, M, _ = q.shape
+    def forward(self, xyz: torch.Tensor, bn_momentum: float = 0.1,
+                generator: torch.Generator | None = None,
+                noise: torch.Tensor | None = None):
+        """``bn_momentum`` is the torch-style BatchNorm momentum of this call
+        (the BN-momentum schedule's value); ``generator`` / ``noise`` feed
+        the denoise jitter (see :class:`PCTransformer`). All three matter
+        in train mode only."""
+        self.increase_dim[1].momentum = bn_momentum
+        q, coarse, L = self.base_model(xyz, generator=generator, noise=noise)
+        B = q.shape[0]
         global_feature = self.increase_dim(q).amax(dim=1)  # (B, 1024)
         rf = self.reduce_map(global_feature[:, None], q, coarse)
         rebuild = self.decode_head(rf) + coarse[:, :, None]  # (B, M, S, 3)
-        return coarse, rebuild.reshape(B, -1, 3)
+        if not self.training:
+            return coarse, rebuild.reshape(B, -1, 3)
+        pred_fine = rebuild[:, :-L].reshape(B, -1, 3)
+        denoised_fine = rebuild[:, -L:].reshape(B, -1, 3)
+        return coarse[:, :-L], coarse[:, -L:], denoised_fine, pred_fine
 
 
 @MODELS.register_module(name="AdaPoinTr")

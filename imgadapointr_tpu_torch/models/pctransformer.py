@@ -1,10 +1,11 @@
-"""PCTransformer, the AdaPoinTr encoder/decoder core, eval form, point branch.
+"""PCTransformer, the AdaPoinTr encoder/decoder core, point branch.
 
 Counterpart of ``imgadapointr_tpu/models/pctransformer.py:32-153``:
 grouper -> positional embedding + input projection -> encoder -> global
 feature -> coarse prediction + FPS query candidates -> query ranking
-(top num_query) -> mlp_query -> decoder. The denoise queries (train) and
-the image / segmentation fusions wait for later slices.
+(top num_query) -> mlp_query -> decoder. In train mode ``DENOISE_LENGTH``
+jittered FPS points of the input are appended to the ranked queries as
+denoise queries. The image / segmentation fusions wait for later slices.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from .. import ops
 from ..nn.blocks import decoder_from_config, encoder_from_config
 from ..nn.grouper import DGCNNGrouper
 from ..nn.layers import ConcatDense, Linear
+
+
+DENOISE_LENGTH = 64  # reference AdaPoinTr.py:126-129
 
 
 def _mlp2(a: int, b: int, c: int) -> nn.Sequential:
@@ -56,7 +60,11 @@ class PCTransformer(nn.Module):
         )
         self.decoder = decoder_from_config(dec)
 
-    def forward(self, xyz: torch.Tensor):
+    def forward(self, xyz: torch.Tensor, generator: torch.Generator | None = None,
+                noise: torch.Tensor | None = None):
+        """(q, coarse, denoise_length). ``generator`` draws the denoise
+        jitter in train mode; ``noise`` (B, DENOISE_LENGTH, 3), standard
+        normal, replaces the draw."""
         B = xyz.shape[0]
         coor, f = self.grouper(xyz, self.center_num)
         x = self.encoder(self.input_proj(f) + self.pos_embed(coor), coor)
@@ -67,12 +75,20 @@ class PCTransformer(nn.Module):
         mem = x if self.mem_link is None else self.mem_link(x)
 
         # top num_query by ranking score, in jax.lax.top_k's order:
-        # descending, ties to the lower index (a stable ascending sort of -r)
+        # descending, ties to the lower index (a stable ascending sort of -r).
+        # Only the indices are used, so query_ranking gets no gradient and
+        # its parameters keep grad None (the reference's zero-grad subtree).
         r = self.query_ranking(coarse)[..., 0]
         idx = torch.sort(-r, dim=-1, stable=True).indices[:, : self.num_query]
         coarse = ops.index_points(coarse, idx)
 
+        denoise_length = 0
+        if self.training:
+            denoise_length = DENOISE_LENGTH
+            picked = ops.jitter_points(ops.fps(xyz, denoise_length), generator, noise=noise)
+            coarse = torch.cat([coarse, picked], dim=1)
+
         q = self.mlp_query[0](global_feature[:, None, :], coarse)
         q = self.mlp_query[1:](q)
-        q = self.decoder(q, mem, coarse, coor)
-        return q, coarse
+        q = self.decoder(q, mem, coarse, coor, denoise_length=denoise_length)
+        return q, coarse, denoise_length

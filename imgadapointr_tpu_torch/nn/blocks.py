@@ -1,10 +1,11 @@
-"""Config-driven encoder/decoder transformer stacks, eval forms.
+"""Config-driven encoder/decoder transformer stacks.
 
 Counterpart of ``imgadapointr_tpu/nn/blocks.py`` for the block tokens
 ``attn`` and ``attn-graph`` with ``combine_style: concat`` (the
-flagship's). The deformable tokens wait (ROADMAP Queue 1: deformable attention); the
-'onebyone' combine style, LayerScale and the denoise mask come with the
-slices that need them. Module names follow the reference state dict
+flagship's), with the denoise mask of the training forward. The
+deformable tokens wait (ROADMAP Queue 1: deformable attention); the
+'onebyone' combine style, LayerScale, dropout and stochastic depth come
+with the configs that need them. Module names follow the reference state dict
 (``encoder.blocks.blocks.{i}``, ``decoder.blocks.blocks.{i}``).
 """
 
@@ -40,6 +41,17 @@ def _check_combine(style: str) -> None:
         raise NotImplementedError(
             f"combine_style {style!r}: only 'concat' (the shipped configs') is ported"
         )
+
+
+def denoise_mask(query_len: int, denoise_length: int, device=None) -> torch.Tensor | None:
+    """Boolean (N, N) mask, True = masked: the real queries cannot attend
+    to the trailing ``denoise_length`` denoise tokens (reference
+    base_blocks.py:224-229). None when there are no denoise tokens."""
+    if denoise_length == 0:
+        return None
+    m = torch.zeros(query_len, query_len, dtype=torch.bool, device=device)
+    m[:-denoise_length, -denoise_length:] = True
+    return m
 
 
 def _norm(dim: int) -> nn.LayerNorm:
@@ -98,16 +110,21 @@ class CrossAttnBlockApi(nn.Module):
         self.norm2 = _norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, q, v, q_pos, v_pos, self_attn_idx=None, cross_attn_idx=None):
+    def forward(self, q, v, q_pos, v_pos, self_attn_idx=None, cross_attn_idx=None,
+                denoise_length: int = 0):
+        mask = denoise_mask(q.shape[1], denoise_length, q.device)
         nq = self.norm1(q)
+
+        def local_self():
+            return self.local_self_attn(nq, q_pos, idx=self_attn_idx,
+                                        denoise_length=denoise_length)
+
         if self.self_attn_merge_map is not None:
-            f = self.self_attn_merge_map(torch.cat(
-                [self.self_attn(nq), self.local_self_attn(nq, q_pos, idx=self_attn_idx)], -1
-            ))
+            f = self.self_attn_merge_map(torch.cat([self.self_attn(nq, mask), local_self()], -1))
         elif self.self_attn is not None:
-            f = self.self_attn(nq)
+            f = self.self_attn(nq, mask)
         else:
-            f = self.local_self_attn(nq, q_pos, idx=self_attn_idx)
+            f = local_self()
         q = q + f
 
         nq, nv = self.norm_q(q), self.norm_v(v)
@@ -161,7 +178,8 @@ class PointTransformerEncoder(nn.Module):
 
 class PointTransformerDecoder(nn.Module):
     """CrossAttnBlockApi stack; the self and cross kNN indices are computed
-    once for the whole stack."""
+    once for the whole stack. With denoise tokens the self index is left to
+    each graph block's two-phase search (reference base_blocks.py:337-367)."""
 
     def __init__(self, embed_dim=256, depth=12, num_heads=4, mlp_ratio=4.0,
                  qkv_bias=True, self_attn_block_style_list=("attn-graph",),
@@ -179,18 +197,24 @@ class PointTransformerDecoder(nn.Module):
             for i in range(depth)
         ])
 
-    def forward(self, q, v, q_pos, v_pos):
-        self_idx = knn_point(self.k, q_pos, q_pos)
+    def forward(self, q, v, q_pos, v_pos, denoise_length: int = 0):
+        self_idx = knn_point(self.k, q_pos, q_pos) if denoise_length == 0 else None
         cross_idx = knn_point(self.k, v_pos, q_pos)
         for blk in self.blocks.blocks:
-            q = blk(q, v, q_pos, v_pos, self_attn_idx=self_idx, cross_attn_idx=cross_idx)
+            q = blk(q, v, q_pos, v_pos, self_attn_idx=self_idx, cross_attn_idx=cross_idx,
+                    denoise_length=denoise_length)
         return q
 
 
 def _common(cfg) -> dict:
     if cfg.get("init_values", None) is not None:
         raise NotImplementedError("LayerScale (init_values) is not ported: no shipped config sets it")
-    # drop_rate / attn_drop_rate / drop_path_rate: identities in eval
+    for rate in ("drop_rate", "attn_drop_rate", "drop_path_rate"):
+        if float(cfg.get(rate, 0.0)) != 0.0:
+            raise NotImplementedError(
+                f"{rate} = {cfg[rate]}: dropout and stochastic depth are not ported "
+                "(every shipped AdaPoinTr config sets 0)"
+            )
     return dict(
         embed_dim=int(cfg.embed_dim), depth=int(cfg.depth), num_heads=int(cfg.num_heads),
         mlp_ratio=float(cfg.get("mlp_ratio", 4.0)), qkv_bias=bool(cfg.get("qkv_bias", True)),

@@ -1,10 +1,12 @@
-"""DGCNN grouper, eval form (counterpart of ``imgadapointr_tpu/nn/grouper.py:22-89``).
+"""DGCNN grouper (counterpart of ``imgadapointr_tpu/nn/grouper.py:22-89``).
 
 Four edge convolutions (1x1 conv, GroupNorm(4, eps 1e-5), LeakyReLU(0.2),
 max over k = 16 neighbours) and two FPS downsamples. Input (B, N, 3);
-output (coor (B, num[-1], 3), feat (B, num[-1], 128)). The train form,
-which commutes layer 1 past the gather, is part of the training slice
-(ROADMAP Queue 1); the two forms are equal in value.
+output (coor (B, num[-1], 3), feat (B, num[-1], 128)). In train mode layer
+1 gathers the raw coordinates and applies ``input_trans`` after the gather
+(``grouper.py:59-74``): equal in value to the eval form, and the gathered
+table needs no gradient, so no (B, N, k, 8) -> (B, N, 8) scatter-add runs
+in the backward.
 """
 
 from __future__ import annotations
@@ -54,7 +56,13 @@ class DGCNNGrouper(nn.Module):
     def forward(self, x: torch.Tensor, num: Sequence[int]):
         coor = x
         f = self.input_trans(x)
-        f = self.layer1(self._graph_feature(coor, f, coor, f)).amax(dim=2)
+        if self.training:
+            nbr = self.input_trans(index_points(coor, knn_point(self.k, coor, coor)))
+            fq = f[:, :, None].expand_as(nbr)
+            feat = torch.cat([nbr - fq, fq], dim=-1)
+        else:
+            feat = self._graph_feature(coor, f, coor, f)
+        f = self.layer1(feat).amax(dim=2)
         coor_q, f_q = self._fps_downsample(coor, f, num[0])
         f = self.layer2(self._graph_feature(coor_q, f_q, coor, f)).amax(dim=2)
         coor = coor_q

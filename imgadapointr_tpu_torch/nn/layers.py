@@ -1,13 +1,13 @@
-"""Base layers in batch-last (B, N, C) layout, eval forms.
+"""Base layers in batch-last (B, N, C) layout.
 
 Counterparts of ``imgadapointr_tpu/nn/layers.py``. Parameters carry the
 reference torch state-dict names and shapes, so reference checkpoints and
 :func:`tools.convert.state_dict_from_flax` load with a plain
-``load_state_dict``. Dropout and stochastic depth are identities in eval
-and have no parameters, so they are not instantiated; LayerScale appears
+``load_state_dict``. Dropout and stochastic depth have no parameters and
+their rates are 0 in every shipped AdaPoinTr config, so they are not
+instantiated (the blocks raise on a non-zero rate); LayerScale appears
 only with ``init_values``, which no shipped config sets (the blocks raise
-on it). Training-mode forms (batch statistics, denoise masks) belong to the
-training slice (ROADMAP Queue 1).
+on it).
 """
 
 from __future__ import annotations
@@ -17,8 +17,6 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-_TRAINING_SLICE = "training-mode forward is part of the training slice (ROADMAP Queue 1)"
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -93,17 +91,22 @@ class Mlp(nn.Module):
         return self.fc2(gelu(self.fc1(x)))
 
 
-def _sdpa(q, k, v, scale: float) -> torch.Tensor:
+def _sdpa(q, k, v, scale: float, mask: torch.Tensor | None = None) -> torch.Tensor:
     """Attention on (B, H, N, D) tensors with the softmax in >= float32.
-    Written as matmul + softmax, as the JAX package leaves it to XLA."""
+    Written as matmul + softmax, as the JAX package leaves it to XLA.
+    ``mask`` is boolean, broadcastable to (B, H, N, M), True = masked."""
     acc = torch.promote_types(q.dtype, torch.float32)
     attn = torch.matmul(q.to(acc), k.to(acc).transpose(-2, -1)) * scale
+    if mask is not None:
+        attn = attn.masked_fill(mask, torch.finfo(attn.dtype).min)
     attn = attn.softmax(dim=-1)
     return torch.matmul(attn.to(v.dtype), v)
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention (reference Transformer_utils.py:89-122)."""
+    """Multi-head self-attention (reference Transformer_utils.py:89-122)
+    with an optional boolean mask, True = masked: the denoise task's rule
+    that real queries do not see the denoise tokens."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False):
         super().__init__()
@@ -112,11 +115,11 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
         qkv = self.qkv(x).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
-        out = _sdpa(qkv[0], qkv[1], qkv[2], self.scale)
+        out = _sdpa(qkv[0], qkv[1], qkv[2], self.scale, mask)
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
@@ -147,12 +150,20 @@ class CrossAttention(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the last axis, eval form: running statistics, eps
-    1e-5. Buffers match ``torch.nn.BatchNorm1d`` for state-dict loading."""
+    """BatchNorm over the last axis, eps 1e-5, with torch-style momentum
+    read at call time from ``self.momentum`` (the BN-momentum schedule sets
+    it before each step): ``running = (1 - m) * running + m * batch``.
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    In train mode the batch statistics are taken over every other axis in
+    >= float32, as ``imgadapointr_tpu/nn/layers.py:255-276`` takes them: the
+    variance is ``E[x^2] - E[x]^2``, biased for the normalisation and
+    unbiased for the running update. Buffers match ``torch.nn.BatchNorm1d``
+    for state-dict loading."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -161,8 +172,19 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(f"BatchNorm: {_TRAINING_SLICE}")
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+            axes = tuple(range(x.dim() - 1))
+            xs = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xs.mean(dim=axes)
+            var = xs.square().mean(dim=axes) - mean.square()
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                m = float(self.momentum)
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
 

@@ -1,8 +1,9 @@
 """Local graph attention (counterpart of ``imgadapointr_tpu/nn/local_attention.py``).
 
-Only ``DynamicGraphAttention`` (the 'graph' block token, the flagship's)
-on its eval branch (``denoise_length == 0``). The deformable tokens
-('rw_deform', 'deform', 'deform_graph') wait (ROADMAP Queue 1: deformable attention).
+Only ``DynamicGraphAttention`` (the 'graph' block token, the flagship's),
+with the two-phase neighbour search of the denoise task. The deformable
+tokens ('rw_deform', 'deform', 'deform_graph') wait (ROADMAP Queue 1:
+deformable attention).
 """
 
 from __future__ import annotations
@@ -13,6 +14,21 @@ from torch import nn
 
 from ..ops import index_points, knn_point
 from .layers import Linear, leaky_relu
+
+
+def two_phase_knn_gather(k: int, q_pos, v_pos, feats, denoise_length: int):
+    """Two-phase kNN gather of the denoise task
+    (``imgadapointr_tpu/nn/local_attention.py:106-122``): the real queries
+    (all but the last ``denoise_length``) search their neighbours among the
+    real tokens only, the denoise queries among all tokens. Returns the
+    gathered (B, N, k, C_i) tensor for each array of ``feats``."""
+    L = denoise_length
+    idx_r = knn_point(k, v_pos[:, :-L].contiguous(), q_pos[:, :-L].contiguous())
+    idx_n = knn_point(k, v_pos, q_pos[:, -L:].contiguous())
+    return [
+        torch.cat([index_points(f[:, :-L], idx_r), index_points(f, idx_n)], dim=1)
+        for f in feats
+    ]
 
 
 class DynamicGraphAttention(nn.Module):
@@ -30,15 +46,22 @@ class DynamicGraphAttention(nn.Module):
         self.k = k
         self.knn_map = nn.Sequential(Linear(dim * 2, dim), nn.LeakyReLU(0.2))
 
-    def forward(self, q, q_pos, v=None, v_pos=None, idx=None) -> torch.Tensor:
-        v = q if v is None else v
-        v_pos = q_pos if v_pos is None else v_pos
-        if idx is None:
-            idx = knn_point(self.k, v_pos, q_pos)
+    def forward(self, q, q_pos, v=None, v_pos=None, idx=None,
+                denoise_length: int = 0) -> torch.Tensor:
         lin = self.knn_map[0]
         C = lin.out_features
         w = lin.weight
-        u = F.linear(v, w[:, :C], lin.bias)  # v W1 + b
+        if denoise_length == 0:
+            v = q if v is None else v
+            v_pos = q_pos if v_pos is None else v_pos
+            if idx is None:
+                idx = knn_point(self.k, v_pos, q_pos)
+            local_u = index_points(F.linear(v, w[:, :C], lin.bias), idx)  # v W1 + b
+        else:
+            if v is not None or v_pos is not None or idx is not None:
+                raise ValueError("DynamicGraphAttention: denoise mode is self-attention only")
+            u = F.linear(q, w[:, :C], lin.bias)
+            (local_u,) = two_phase_knn_gather(self.k, q_pos, q_pos, (u,), denoise_length)
         c = F.linear(q, w[:, C:] - w[:, :C])  # q (W2 - W1)
-        out = leaky_relu(index_points(u, idx) + c[:, :, None])
+        out = leaky_relu(local_u + c[:, :, None])
         return out.amax(dim=2)

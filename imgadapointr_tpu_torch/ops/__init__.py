@@ -2,11 +2,15 @@
 
 from .chamfer import (
     chamfer_l1,
+    chamfer_l1_pm,
     chamfer_l2,
+    chamfer_l2_split,
     nn_bidir_argmin,
     nn_bidir_argmin_plain,
     nn_distance,
     nn_distance_eval,
+    nn_one_direction,
+    nn_one_direction_plain,
 )
 from .pointops import (
     fps,
@@ -19,12 +23,17 @@ from .pointops import (
     knn_plain,
     knn_point,
     knn_with_distance,
+    scatter_add_rows,
+    scatter_add_rows_plain,
 )
+from .sampling import jitter_points
 
 __all__ = [
-    "chamfer_l1", "chamfer_l2", "nn_bidir_argmin", "nn_bidir_argmin_plain",
-    "nn_distance", "nn_distance_eval", "fps", "fps_plain",
-    "furthest_point_sample", "gather_points", "gather_rows",
-    "gather_rows_plain", "index_points", "knn_plain", "knn_point",
-    "knn_with_distance",
+    "chamfer_l1", "chamfer_l1_pm", "chamfer_l2", "chamfer_l2_split",
+    "nn_bidir_argmin", "nn_bidir_argmin_plain", "nn_distance",
+    "nn_distance_eval", "nn_one_direction", "nn_one_direction_plain", "fps",
+    "fps_plain", "furthest_point_sample", "gather_points", "gather_rows",
+    "gather_rows_plain", "index_points", "jitter_points", "knn_plain",
+    "knn_point", "knn_with_distance", "scatter_add_rows",
+    "scatter_add_rows_plain",
 ]

@@ -1,10 +1,12 @@
 """Point-cloud geometry ops: row gather, kNN, farthest point sampling.
 
 Counterparts of ``imgadapointr_tpu/ops/pointops.py`` in batch-last (B, N, C)
-layout. Each of the three kernels has a wrapper and a plain PyTorch
+layout. Each of the four kernels has a wrapper and a plain PyTorch
 version of the same function beside it:
 
 - :func:`gather_rows` / :func:`gather_rows_plain` (``csrc/gather_rows.cu``)
+- :func:`scatter_add_rows` / :func:`scatter_add_rows_plain`
+  (``csrc/scatter_add_rows.cu``), the gather's backward
 - :func:`knn_with_distance` / :func:`knn_plain` (``csrc/knn.cu``)
 - :func:`furthest_point_sample` / :func:`fps_plain` (``csrc/fps.cu``)
 
@@ -54,19 +56,7 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(table, 1, idx.unsqueeze(-1).expand(B, idx.shape[1], C))
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``out[b, s, :] = table[b, clamp(idx[b, s], 0, M - 1), :]``.
-
-    table (B, M, C), idx (B, S) int64 -> (B, S, C). Out-of-range indices are
-    clamped, as XLA's gather and the TPU kernel do (CLAUDE.md:97-99), where
-    ``torch.gather`` would raise. No gradient yet: the scatter-add backward
-    arrives with the training slice (ROADMAP Queue 1).
-    """
-    if table.requires_grad:
-        raise NotImplementedError(
-            "gather_rows has no backward yet: the scatter-add gradient is part "
-            "of the training slice (ROADMAP Queue 1)"
-        )
+def _gather_rows_forward(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.dim() != 3 or idx.dim() != 2 or idx.shape[0] != table.shape[0]:
         raise ValueError(
             f"gather_rows: table (B, M, C) and idx (B, S) expected, got "
@@ -87,6 +77,80 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _build.launch(
         "gather_rows", "gather_rows_f32", table.device,
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, M, S, C,
+    )
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    """Row gather whose backward is the scatter-add kernel: the cotangent
+    of ``out[b, s]`` is added to row ``clamp(idx[b, s])`` of the table's
+    gradient (``imgadapointr_tpu/ops/pallas/gather_rows.py:210-221``)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[1]
+        return _gather_rows_forward(table, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return scatter_add_rows(ctx.rows, idx, grad.contiguous()), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[b, s, :] = table[b, clamp(idx[b, s], 0, M - 1), :]``.
+
+    table (B, M, C), idx (B, S) int64 -> (B, S, C). Out-of-range indices are
+    clamped, as XLA's gather and the TPU kernel do (CLAUDE.md:97-99), where
+    ``torch.gather`` would raise. Differentiable in ``table``: the backward
+    is :func:`scatter_add_rows`.
+    """
+    return _GatherRows.apply(table, idx)
+
+
+# ---------------------------------------------------------- row scatter-add
+
+
+def scatter_add_rows_plain(n_rows: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`scatter_add_rows`: clamp, then
+    ``Tensor.scatter_add_`` into zeros."""
+    B, S, C = vals.shape
+    out = torch.zeros(B, n_rows, C, dtype=vals.dtype, device=vals.device)
+    idx = idx.clamp(0, n_rows - 1)
+    return out.scatter_add_(1, idx.unsqueeze(-1).expand(B, S, C), vals)
+
+
+def scatter_add_rows(n_rows: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``out[b, clamp(idx[b, s], 0, n_rows - 1), :] += vals[b, s, :]`` into
+    zeros; idx (B, S) int64, vals (B, S, C) -> (B, n_rows, C).
+
+    The two cross terms of the chamfer backward and the backward of
+    :func:`gather_rows`. On the card the kernel adds with float32 atomics:
+    a row that receives several contributions agrees with the plain version
+    to float32 rounding and can differ in its last bits between two runs; a
+    row with at most one contribution is bit-equal.
+    """
+    if vals.dim() != 3 or idx.dim() != 2 or idx.shape != vals.shape[:2]:
+        raise ValueError(
+            f"scatter_add_rows: idx (B, S) and vals (B, S, C) expected, got "
+            f"{tuple(idx.shape)} and {tuple(vals.shape)}"
+        )
+    if n_rows < 1:
+        raise ValueError(f"scatter_add_rows: needs n_rows >= 1, got {n_rows}")
+    if idx.dtype != torch.int64:
+        raise TypeError(f"scatter_add_rows: int64 indices expected, got {idx.dtype}")
+    if _on_cpu("scatter_add_rows", vals):
+        return scatter_add_rows_plain(n_rows, idx, vals)
+    _build.require_cuda_f32("scatter_add_rows", vals.device, vals)
+    if idx.device != vals.device or not idx.is_contiguous():
+        raise ValueError("scatter_add_rows: idx must be contiguous on the values' device")
+    B, S, C = vals.shape
+    out = torch.empty(B, n_rows, C, dtype=vals.dtype, device=vals.device)
+    _build.launch(
+        "scatter_add_rows", "scatter_add_rows_f32", vals.device,
+        vals.data_ptr(), idx.data_ptr(), out.data_ptr(), B, S, n_rows, C,
     )
     return out
 

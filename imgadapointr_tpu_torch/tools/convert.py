@@ -1,4 +1,5 @@
-"""Weights into the port: flax trees and reference torch checkpoints.
+"""Weights and optimizer state into the port: flax trees, optax AdamW
+moments and reference torch checkpoints.
 
 :func:`state_dict_from_flax` carries a flax AdaPoinTr tree (nested dicts of
 numpy arrays) across to the port's state dict. It keeps its own copy of the
@@ -9,6 +10,10 @@ torch weight (out, in) (with trailing 1-dims for the reference's 1x1
 convolutions), ConcatDense parts are stacked back by rows, norms and BN
 statistics copy across. Because the port's parameters carry the reference
 names, the result loads with ``model.load_state_dict(sd, strict=True)``.
+
+:func:`adamw_state_from_optax` carries the JAX package's AdamW moments
+(``mu``, ``nu`` and the step ``count``) across the same mapping into a
+``torch.optim.AdamW.state_dict()``, so the port can continue a JAX run.
 
 :func:`load_reference_state` reads a reference-layout ``.pth``/``.pt``.
 """
@@ -130,21 +135,28 @@ def _leaf(tree, path):
     return np.asarray(tree)
 
 
-def state_dict_from_flax(params, batch_stats, config) -> dict[str, torch.Tensor]:
-    """flax AdaPoinTr ``params`` / ``batch_stats`` (nested dicts of numpy
-    arrays) -> the port's float32 state dict (reference key layout)."""
-    sd: dict[str, np.ndarray] = {}
+def _params_from_flax(params, config) -> dict[str, np.ndarray]:
+    """A flax params-shaped tree (weights, gradients or moments) -> arrays
+    under the port's parameter names, in the port's layouts."""
+    out: dict[str, np.ndarray] = {}
     for tkey, kind, path, kernel_dims in _mapping(config):
         if kind == "linear":
             w = _leaf(params, path).T
-            w = w.reshape(w.shape + (1,) * kernel_dims)
+            out[tkey] = w.reshape(w.shape + (1,) * kernel_dims)
         elif kind == "concat":
-            w = np.concatenate([_leaf(params, p) for p in path], axis=0).T
-        elif kind == "stats":
-            w = _leaf(batch_stats, path)
-        else:
-            w = _leaf(params, path)
-        sd[tkey] = w
+            out[tkey] = np.concatenate([_leaf(params, p) for p in path], axis=0).T
+        elif kind == "param":
+            out[tkey] = _leaf(params, path)
+    return out
+
+
+def state_dict_from_flax(params, batch_stats, config) -> dict[str, torch.Tensor]:
+    """flax AdaPoinTr ``params`` / ``batch_stats`` (nested dicts of numpy
+    arrays) -> the port's float32 state dict (reference key layout)."""
+    sd = _params_from_flax(params, config)
+    for tkey, kind, path, _ in _mapping(config):
+        if kind == "stats":
+            sd[tkey] = _leaf(batch_stats, path)
     # the reference's encoder norm is defined but never applied
     # (base_blocks.py:429-431): exported as the identity
     dim = int(config.encoder_config.embed_dim)
@@ -153,6 +165,35 @@ def state_dict_from_flax(params, batch_stats, config) -> dict[str, torch.Tensor]
     out = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
     out["increase_dim.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return out
+
+
+def adamw_state_from_optax(mu, nu, count: int, config, model, optimizer) -> dict:
+    """The JAX package's AdamW state as a ``torch.optim.AdamW.state_dict()``.
+
+    ``mu`` / ``nu`` are optax's first and second moments
+    (``ScaleByAdamState``), flax-params-shaped trees of numpy arrays, and
+    ``count`` its number of updates. The result is for ``optimizer``, built
+    over ``model``'s parameters (any grouping): load it with
+    ``optimizer.load_state_dict``. Parameters without a gradient (the
+    query-ranking subtree, which optax tracks with zero moments, and the
+    unused encoder norm) get no state, as torch keeps none for them."""
+    from .builder import ZERO_GRAD_PARAM_MARKERS
+
+    exp_avg = _params_from_flax(mu, config)
+    exp_avg_sq = _params_from_flax(nu, config)
+    names = {id(p): n for n, p in model.named_parameters()}
+    state, index = {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            if name in exp_avg and not any(m in name for m in ZERO_GRAD_PARAM_MARKERS):
+                state[index] = {
+                    "step": torch.tensor(float(count)),
+                    "exp_avg": torch.from_numpy(np.array(exp_avg[name])).to(p),
+                    "exp_avg_sq": torch.from_numpy(np.array(exp_avg_sq[name])).to(p),
+                }
+            index += 1
+    return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
 
 
 def load_reference_state(path: str) -> dict[str, torch.Tensor]:

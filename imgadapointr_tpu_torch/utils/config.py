@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import copy
 import os
+import shutil
 from collections.abc import Mapping
 from typing import Any
 
@@ -93,3 +94,18 @@ def cfg_from_yaml_file(path: str, root: str | None = None) -> AttrDict:
     with open(path) as f:
         raw = yaml.safe_load(f) or {}
     return AttrDict(_merge_base(raw, root))
+
+
+def get_config(args) -> AttrDict:
+    """The run's config: ``--resume`` re-reads the copy saved in the
+    experiment directory; otherwise ``args.config`` is loaded and a copy
+    saved there for resuming (reference utils/config.py:37-63)."""
+    saved = os.path.join(args.experiment_path, "config.yaml")
+    if getattr(args, "resume", False):
+        if not os.path.exists(saved):
+            raise FileNotFoundError(f"Failed to resume: {saved} not found")
+        args.config = saved
+    elif os.path.abspath(args.config) != os.path.abspath(saved):
+        os.makedirs(args.experiment_path, exist_ok=True)
+        shutil.copy(args.config, saved)
+    return cfg_from_yaml_file(args.config)

@@ -1,14 +1,28 @@
 """Evaluation metrics: CD-L1, CD-L2 (both x1000) and F-Score@0.01.
 
-Counterpart of ``imgadapointr_tpu/utils/metrics.py:35-96``. All three come
-from one bidirectional nearest-neighbour pass (:func:`ops.nn_distance_eval`).
+Counterpart of ``imgadapointr_tpu/utils/metrics.py``. All three come
+from one bidirectional nearest-neighbour pass (:func:`ops.nn_distance_eval`);
+:func:`compute_metrics` is the test protocol's table row, whose CDs can
+drop zero-padded rows. EMD waits (ROADMAP Queue 1: EMD) and reads 0.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import nn_distance_eval
+from ..ops import nn_distance, nn_distance_eval
+from ..ops.chamfer import _masked_mean, _sqrt_floor
+
+METRIC_NAMES = ["F-Score", "CDL1", "CDL2", "EMDistance"]
+# whether a greater value of the metric is better
+METRIC_SIGNS = {"F-Score": True, "CDL1": False, "CDL2": False, "EMDistance": False}
+
+
+def _nonzero_mask(cloud: torch.Tensor) -> torch.Tensor:
+    """(B, N) mask of the cloud's dtype: 1 for real rows, 0 for zero-padded
+    rows, by the reference's signed test ``sum(xyz) != 0`` (a real point
+    whose coordinates sum to zero is dropped there, so it is here)."""
+    return (cloud.sum(dim=-1) != 0).to(cloud.dtype)
 
 
 def _f_from_hits(s1: torch.Tensor, s2: torch.Tensor, th: float) -> torch.Tensor:
@@ -44,3 +58,52 @@ def eval_metric_suite(pred: torch.Tensor, gt: torch.Tensor, th: float = 0.01,
     if reduce:
         return f.mean(), cd_l1.mean(), cd_l2.mean()
     return f, cd_l1, cd_l2
+
+
+def compute_metrics(pred: torch.Tensor, gt: torch.Tensor, ignore_zeros: bool = False,
+                    f_value: torch.Tensor | None = None):
+    """[F-Score, CDL1 x1000, CDL2 x1000, EMD] of the test protocol
+    (``imgadapointr_tpu/utils/metrics.py:99-144``).
+
+    ``ignore_zeros`` drops zero-padded rows of either cloud from the CD
+    means and from the neighbour candidates, as the reference's eval
+    objects do at batch size 1; the F-Score never strips zeros. ``f_value``
+    is a precomputed F-Score of (pred, gt) from :func:`eval_metric_suite`,
+    which saves a second unmasked pass. EMD is not ported and reads 0."""
+    w_pred = _nonzero_mask(pred) if ignore_zeros else None
+    w_gt = _nonzero_mask(gt) if ignore_zeros else None
+    d1, d2, _, _ = nn_distance(pred.detach(), gt.detach(), w_pred, w_gt)
+    cd_l1 = (_masked_mean(_sqrt_floor(d1), w_pred) + _masked_mean(_sqrt_floor(d2), w_gt)) / 2.0
+    cd_l2 = _masked_mean(d1, w_pred) + _masked_mean(d2, w_gt)
+    f = f_score(pred, gt) if f_value is None else f_value
+    return [f, cd_l1 * 1000.0, cd_l2 * 1000.0, torch.zeros_like(cd_l1)]
+
+
+class Metrics:
+    """The metric values of one evaluation, compared on the considered
+    metric (reference utils/metrics.py:118-165)."""
+
+    def __init__(self, metric_name: str, values):
+        if metric_name not in METRIC_NAMES:
+            raise ValueError(f"unknown metric {metric_name}")
+        self.metric_name = metric_name
+        if isinstance(values, dict):
+            self._values = {k: float(v) for k, v in values.items()}
+        else:
+            self._values = {n: float(v) for n, v in zip(METRIC_NAMES, values)}
+
+    def state_dict(self) -> dict:
+        return dict(self._values)
+
+    def value(self) -> float:
+        return self._values[self.metric_name]
+
+    def better_than(self, other: "Metrics | None") -> bool:
+        if other is None:
+            return True
+        if METRIC_SIGNS[self.metric_name]:
+            return self.value() > other.value()
+        return self.value() < other.value()
+
+    def __repr__(self):
+        return f"Metrics({self.metric_name}, {self._values})"

@@ -1,4 +1,4 @@
-"""The port's four CUDA kernels against their plain PyTorch versions.
+"""The port's six CUDA kernels against their plain PyTorch versions.
 
 These need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 ``imgadapointr_tpu_torch/csrc`` at first use); elsewhere each test skips
@@ -7,9 +7,12 @@ machine with a card it runs on its own:
 
     python -m pytest tests/test_torch_kernels.py -q --noconftest
 
-Tolerance: none. Every kernel repeats its plain version's arithmetic
-(diff-form distances without FMA contraction, first index on ties), so
-indices are equal and values bit-equal.
+Tolerance: none, but for the scatter-add. Every other kernel repeats its
+plain version's arithmetic (diff-form distances without FMA contraction,
+first index on ties), so indices are equal and values bit-equal. The
+scatter-add sums with float32 atomics in no fixed order: it is held to
+1e-5 of each element's sum of absolute contributions, and to bit-equality
+where every row receives one contribution.
 """
 
 import pytest
@@ -100,8 +103,8 @@ def test_gather_kernel_refuses_what_it_cannot_take(dev):
         ops.gather_rows(table.double(), idx)
     with pytest.raises(ValueError):
         ops.gather_rows(table.transpose(1, 2), idx)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.gather_rows(table.requires_grad_(), idx)
+    with pytest.raises(ValueError):
+        ops.gather_rows(table, idx.cpu())
 
 
 @pytest.mark.parametrize("kind", ["random", "sphere"])
@@ -122,3 +125,87 @@ def test_nn_bidir_kernel_identical_clouds(dev):
     ident = torch.arange(16384, device=dev).expand(2, -1)
     assert torch.equal(i1, ident) and torch.equal(i2, ident)
     assert float(ops.chamfer_l1(x, x.clone())) < 1e-9
+
+
+@pytest.mark.parametrize("rows,C,S", [(16384, 3, 16384), (512, 3, 16384), (2048, 32, 8192),
+                                      (256, 384, 4608), (100, 5, 300)])
+def test_scatter_add_kernel_agrees_with_plain(dev, rows, C, S):
+    g = torch.Generator().manual_seed(rows + C)
+    idx = torch.randint(-3, rows + 3, (2, S), generator=g).to(dev)  # clamped like the gather
+    vals = _cloud(g, 2, S, C, device=dev)
+    got = _launched("scatter_add_rows", lambda: ops.scatter_add_rows(rows, idx, vals))
+    want = ops.scatter_add_rows_plain(rows, idx, vals)
+    room = 1e-5 * ops.scatter_add_rows_plain(rows, idx, vals.abs())
+    assert bool(((got - want).abs() <= room).all())
+
+
+@pytest.mark.parametrize("n,C", [(16384, 3), (4096, 384), (777, 7)])
+def test_scatter_add_kernel_permutation_is_bit_equal(dev, n, C):
+    g = torch.Generator().manual_seed(n)
+    idx = torch.stack([torch.randperm(n, generator=g) for _ in range(2)]).to(dev)
+    vals = _cloud(g, 2, n, C, device=dev)
+    got = ops.scatter_add_rows(n, idx, vals)
+    assert torch.equal(got, ops.scatter_add_rows_plain(n, idx, vals))
+    assert torch.equal(ops.gather_rows(got, idx), vals)
+
+
+def test_scatter_add_kernel_refuses_what_it_cannot_take(dev):
+    idx = torch.zeros(1, 3, dtype=torch.int64, device=dev)
+    vals = torch.zeros(1, 3, 4, device=dev)
+    with pytest.raises(TypeError):
+        ops.scatter_add_rows(8, idx, vals.double())
+    with pytest.raises(ValueError):
+        ops.scatter_add_rows(8, idx.cpu(), vals)
+    with pytest.raises(ValueError):
+        ops.scatter_add_rows(8, idx, vals.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+def test_gather_kernel_backward_is_the_scatter_kernel(dev):
+    g = torch.Generator().manual_seed(3)
+    table = _cloud(g, 2, 512, 64, device=dev).requires_grad_()
+    idx = torch.randint(0, 512, (2, 4096), generator=g).to(dev)
+    weight = _cloud(g, 2, 4096, 64, device=dev)
+    out = ops.gather_rows(table, idx)
+    _launched("scatter_add_rows", lambda: out.backward(weight))
+    want = ops.scatter_add_rows_plain(512, idx, weight)
+    room = 1e-5 * ops.scatter_add_rows_plain(512, idx, weight.abs())
+    assert bool(((table.grad - want).abs() <= room).all())
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_nn_one_direction_kernel_equals_plain(dev, masked):
+    g = torch.Generator().manual_seed(11)
+    x, y = _sphere(g, 2, 16384, dev), _sphere(g, 2, 12000, dev)
+    wy = (torch.rand(2, 12000, generator=g) > 0.5).float().to(dev) if masked else None
+    got = _launched("nn_one_direction", lambda: ops.nn_one_direction(x, y, wy))
+    assert torch.equal(got, ops.nn_one_direction_plain(x, y, wy))
+    if masked:
+        assert bool(wy.gather(1, got).eq(1).all())
+        assert bool(ops.nn_one_direction(x, y, torch.zeros_like(wy)).eq(0).all())
+    else:  # the same device code as the bidirectional kernel: the same index
+        assert torch.equal(got, ops.nn_bidir_argmin(x, y)[0])
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_nn_distance_gradients_agree_with_plain_path(dev, masked):
+    """Values and both input gradients of ``nn_distance`` on the card (the
+    kernels) against the same Function on the CPU (the plain versions), in
+    float32: indices equal, distances to float32 rounding, gradients to
+    1e-5 of their largest."""
+    g = torch.Generator().manual_seed(13)
+    x, y = torch.randn(2, 3000, 3, generator=g), torch.randn(2, 5000, 3, generator=g)
+    w = ((torch.rand(2, 3000, generator=g) > 0.3).float(), (torch.rand(2, 5000, generator=g) > 0.3).float())
+    g1, g2 = torch.randn(2, 3000, generator=g), torch.randn(2, 5000, generator=g)
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        tx, ty = x.to(device).requires_grad_(), y.to(device).requires_grad_()
+        tw = tuple(m.to(device) for m in w) if masked else (None, None)
+        d1, d2, i1, i2 = ops.nn_distance(tx, ty, *tw)
+        torch.autograd.backward([d1, d2], [g1.to(device), g2.to(device)])
+        outs[device.type] = [t.detach().cpu() for t in (d1, d2, i1, i2, tx.grad, ty.grad)]
+    for a, b in zip(outs["cuda"][2:4], outs["cpu"][2:4]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs["cuda"][:2], outs["cpu"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    for a, b in zip(outs["cuda"][4:], outs["cpu"][4:]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
