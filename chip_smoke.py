@@ -8,19 +8,22 @@ Phases; any failure exits non-zero and prints no result line:
 1. checks: a CUDA device, the card's name and power limit (nvidia-smi), and
    the build of every kernel in ``imgadapointr_tpu_torch/csrc``;
 2. every kernel against its plain PyTorch version on the card, at each
-   shape one serving request (batch ``B``) and one train step (batch
-   ``B_TRAIN``) give it (the one-direction argmin: one test cloud), plus
-   edge probes (identical clouds, dense sphere, all-equal points,
-   out-of-range indices, masks).
+   shape one serving request (batch ``B``), one train step (batch
+   ``B_TRAIN``) and one request of the segmentation models (batch ``B``)
+   give it (the one-direction argmin: one test cloud), plus edge probes
+   (identical clouds, dense sphere, all-equal points, out-of-range
+   indices, masks).
    Indices must be equal and values bit-equal (tolerance 0): each kernel
    repeats its plain version's arithmetic. The scatter-add sums with
    float32 atomics in no fixed order, so it is held to 1e-5 of each
    element's sum of absolute contributions, and to bit-equality where
-   every row receives one contribution. Each kernel, its plain version
+   every row receives one contribution; the weighted gather-sum sums in
+   another order than its plain version and is held to 1e-5 of each
+   element's sum of absolute terms. Each kernel, its plain version
    and, where one PyTorch call computes the same function, that call are
    timed with CUDA events over one serving request's calls (the
    scatter-add: one train step's; the one-direction argmin: one test
-   cloud's);
+   cloud's; the weighted gather-sum: one superset request's);
 3. the serving path at full width: ``cfgs/PCN_models/AdaPoinTr.yaml`` with
    seeded weights answers ``REQUESTS`` requests of ``B`` synthetic PCN
    partial clouds (2048 points) with coarse (512) and fine (16384)
@@ -38,7 +41,19 @@ Phases; any failure exits non-zero and prints no result line:
    tables derived from the config, a checkpoint must
    read back bit-equal, and one step at batch 2 must agree with the same
    step on the CPU through the plain versions (loss 1e-4, gradient norm
-   1e-3, relative).
+   1e-3, relative);
+5. the image and segmentation serving path at full width:
+   ``ImgEncSegDecAdaPoinTrVariableLoss`` (the superset: ResNet18 image
+   fusion after the encoder, frozen GDANet on the 512 ranked queries) with
+   seeded weights answers ``REQUESTS`` requests of ``B`` synthetic
+   (partial cloud, 224x224 image, class one-hot) triples with coarse and
+   fine clouds and their metrics; launches must equal the request table
+   (the flagship's plus GDANet's kNN, gathers and two weighted
+   gather-sums), one request is profiled, and one request at batch 2 is
+   held against the CPU (clouds as sets, the last ranking layer scaled as
+   in phase 4; GDANet's selections that differ are counted). Then one
+   request each of ``SegEncAdaPoinTr`` (GDANet on the encoder centres) and
+   ``ImgResNetEncAdaPoinTrVariableLoss`` (image only), with their tables.
 
 Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.
@@ -63,6 +78,7 @@ from imgadapointr_tpu_torch import ops
 from imgadapointr_tpu_torch.datasets import SyntheticPCN
 from imgadapointr_tpu_torch.main import swap_synthetic
 from imgadapointr_tpu_torch.models import build_model
+from imgadapointr_tpu_torch.models import gdanet as port_gdanet
 from imgadapointr_tpu_torch.ops import _build
 from imgadapointr_tpu_torch.tools import runner as port_runner
 from imgadapointr_tpu_torch.tools.builder import dataset_builder
@@ -71,6 +87,9 @@ from imgadapointr_tpu_torch.utils.config import cfg_from_yaml_file
 from imgadapointr_tpu_torch.utils.metrics import eval_metric_suite
 
 CONFIG = "cfgs/PCN_models/AdaPoinTr.yaml"
+SUPERSET = "cfgs/SegImgPCN_models/ImgEncSegDecAdaPoinTrVariableLoss.yaml"
+BRANCH_CONFIGS = ("cfgs/SegImgPCN_models/SegEncAdaPoinTr.yaml",
+                  "cfgs/ImgPCN_models/ImgResNetEncAdaPoinTrVariableLoss.yaml")
 N_PARTIAL = 2048
 B = 8  # clouds per request
 REQUESTS = 3
@@ -100,19 +119,35 @@ SOURCES = {
                          "imgadapointr_tpu/ops/pallas/scatter_rows.py:109"),
     "nn_one_direction": ("imgadapointr_tpu_torch/csrc/nn_one_direction.cu",
                          "imgadapointr_tpu/ops/pallas/nn_distance.py:93"),
+    "weighted_gather_sum": ("imgadapointr_tpu_torch/csrc/weighted_gather_sum.cu",
+                            "imgadapointr_tpu/ops/pallas/gather_sum.py:113"),
 }
 PORTED_KERNEL_NAMES = ("nn_bidir", "knn_kernel", "fps_kernel", "gather_rows",
-                       "scatter_add_rows", "nn_one_direction")
+                       "scatter_add_rows", "nn_one_direction", "weighted_gather_sum")
 
 
 def log(*a):
     print(*a, flush=True)
 
 
+def gdanet_calls(n: int) -> dict:
+    """Each kernel's calls in one frozen-GDANet pass over n points, its
+    normals included (models/seg_adapointr.py:seg_features): knn (k, S, M),
+    gather_rows (M, C, S), weighted_gather_sum (S, K, M, C)."""
+    k, m, k_gdm = min(30, n), min(512, n), min(64, n)
+    gather = [(n, 3, n * k)] * 3  # the normals' neighbours; block 1's points and normals
+    gather += [(n, 64, m)] * 2 + [(n, 64, n * k)]  # block 1's GDM; block 2's edge conv
+    gather += [(n, 64, m)] * 2 + [(n, 128, n * k)]  # block 2's GDM; block 3's edge conv
+    return {"knn": [(k, n, n)], "gather_rows": gather,
+            "weighted_gather_sum": [(n, k_gdm - 1, n, 64)] * 2}
+
+
 def request_calls(cfg) -> dict:
     """Each kernel's calls in one eval request plus its metrics, per batch
     element count, from the model config: knn (k, S, M), fps (N, npoint),
-    gather_rows (M, C, S), nn_bidir_argmin (N, M)."""
+    gather_rows (M, C, S), nn_bidir_argmin (N, M), weighted_gather_sum
+    (S, K, M, C). A segmentation model adds one GDANet pass: on the ranked
+    queries (the superset) or on the encoder centres (SegEncAdaPoinTr)."""
     n1, n2 = (int(n) for n in cfg.center_num)
     nq, n_fine = int(cfg.num_query), int(cfg.num_points)
     enc, dec = cfg.encoder_config, cfg.decoder_config
@@ -132,8 +167,13 @@ def request_calls(cfg) -> dict:
     gather += [(nq, C, nq * kd)] * sum("graph" in s for s in dec.self_attn_block_style_list)
     gather += [(n2, C, nq * kd)] * sum("graph" in s for s in dec.cross_attn_block_style_list)
     gather += [(n_fine, 3, n_fine)] * 2  # metric residuals, both directions
-    return {"knn": knn, "fps": fps, "gather_rows": gather,
-            "nn_bidir_argmin": [(n_fine, n_fine)]}
+    calls = {"knn": knn, "fps": fps, "gather_rows": gather,
+             "nn_bidir_argmin": [(n_fine, n_fine)], "weighted_gather_sum": []}
+    n_seg = {"ImgEncSegDecAdaPoinTrVariableLoss": nq, "SegEncAdaPoinTr": n2}.get(cfg.NAME)
+    if n_seg:
+        for name, c in gdanet_calls(n_seg).items():
+            calls[name] = calls[name] + c
+    return calls
 
 
 def train_step_calls(cfg) -> dict:
@@ -171,7 +211,7 @@ def train_step_calls(cfg) -> dict:
         gather += [(n_gt, 3, n_pred), (n_pred, 3, n_gt)]
     scatter = [(n_pred, 3, n_gt) for n_pred, n_gt in chamfer] + grad_gathers
     return {"knn": knn, "fps": fps, "gather_rows": gather, "nn_bidir_argmin": chamfer,
-            "scatter_add_rows": scatter, "nn_one_direction": []}
+            "scatter_add_rows": scatter, "nn_one_direction": [], "weighted_gather_sum": []}
 
 
 def eval_calls(cfg, protocol: str) -> dict:
@@ -192,9 +232,10 @@ def eval_calls(cfg, protocol: str) -> dict:
 
 def batched(calls, extra) -> list:
     """(batch, shape) cases of a phase-2 check: the serving request's calls
-    at batch ``B`` first (the timed ones), then the train step's shapes at
-    ``B_TRAIN``, each once."""
-    return [(B, c) for c in calls] + [(B_TRAIN, c) for c in dict.fromkeys(extra)]
+    at batch ``B`` first (the timed ones), then ``extra``'s (batch, shape)
+    pairs (a train step's at ``B_TRAIN``, the segmentation models' at
+    ``B``), each once."""
+    return [(B, c) for c in calls] + list(dict.fromkeys(extra))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -320,10 +361,14 @@ def check_bidir(calls, extra, g, dev):
     require(torch.equal(i1, ident) and torch.equal(i2, ident), "identical clouds: argmin is not the identity")
     cd = float(ops.chamfer_l1(same, same.clone()))
     require(cd < 1e-9, f"identical clouds: CD-L1 {cd}")
+    def library():  # one distance matrix, its argmin along both axes
+        d = torch.cdist(x, y)
+        return d.argmin(-1), d.argmin(1)
+
     t = {
         "ms": cuda_ms(lambda: ops.nn_bidir_argmin(x, y), 10),
         "plain_ms": cuda_ms(lambda: ops.nn_bidir_argmin_plain(x, y), 1),
-        "library_ms": None,
+        "library_ms": cuda_ms(library, 5),
     }
     return err, t, B * N * M * OPS_PAIR_BIDIR, B * (N + M) * 12 + B * (N + M) * 8
 
@@ -416,32 +461,92 @@ def check_one_direction(calls, extra, g, dev):
     return 0.0, t, pairs * OPS_PAIR_ONE_WAY, sum((n + m) * 12 + m * 4 + n * 8 for n, m in calls)
 
 
+def check_weighted_gather_sum(calls, extra, g, dev):
+    """weighted_gather_sum at the segmentation models' request shapes,
+    held to 1e-5 of each element's sum of absolute terms; out-of-range
+    indices (two in three in a probe) must contribute nothing. Timed over one
+    superset request's calls, beside ``embedding_bag`` with per-sample
+    weights (one PyTorch call for the same sum)."""
+    inputs, err = [], 0.0
+    for b, (S, K, M, C) in batched(calls, extra):
+        idx = torch.stack([torch.stack([torch.randperm(M, generator=g)[:K] for _ in range(S)])
+                           for _ in range(b)]).to(dev)  # distinct neighbours, as a top-k gives
+        w, feats = torch.rand(b, S, K, generator=g).to(dev), torch.randn(b, M, C, generator=g).to(dev)
+        inputs.append((w, idx, feats))
+        got = ops.weighted_gather_sum(w, idx, feats)
+        want = ops.weighted_gather_sum_plain(w, idx, feats)
+        room = 1e-5 * ops.weighted_gather_sum_plain(w, idx, feats.abs())
+        require(bool(((got - want).abs() <= room).all()),
+                f"weighted_gather_sum {(b, S, K, M, C)}: beyond 1e-5 of the absolute sum")
+        err = max(err, float((got - want).abs().max()))
+    w, idx, feats = inputs[0]
+    M = feats.shape[1]
+    bad = idx.clone()  # two in three out of range: below 0, past the end
+    bad[..., 0::3] = -1
+    bad[..., 1::3] += M
+    got, want = ops.weighted_gather_sum(w, bad, feats), ops.weighted_gather_sum_plain(w, bad, feats)
+    require(bool(((got - want).abs() <= 1e-5 * ops.weighted_gather_sum_plain(w, bad, feats.abs())).all()),
+            "weighted_gather_sum, out-of-range indices: differs from plain")
+    only_bad = ops.weighted_gather_sum(w.masked_fill((bad >= 0) & (bad < M), 0.0), bad, feats)
+    require(int(only_bad.count_nonzero()) == 0, "weighted_gather_sum: an out-of-range index contributed")
+    inputs = inputs[:len(calls)]
+    bags = [((i + torch.arange(i.shape[0], device=dev)[:, None, None] * f.shape[1]).reshape(-1, i.shape[-1]),
+             f.reshape(-1, f.shape[-1]), w.reshape(-1, w.shape[-1])) for w, i, f in inputs]
+    t = {
+        "ms": cuda_ms(lambda: [ops.weighted_gather_sum(*a) for a in inputs], 50),
+        "plain_ms": cuda_ms(lambda: [ops.weighted_gather_sum_plain(*a) for a in inputs], 50),
+        "library_ms": cuda_ms(lambda: [torch.nn.functional.embedding_bag(
+            i, f, per_sample_weights=w, mode="sum") for i, f, w in bags], 50),
+    }
+    # weights, indices and the table read once, the output written once;
+    # one multiply-add per (row, neighbour, channel)
+    nbytes = sum(B * (S * K * (4 + 8) + M * C * 4 + S * C * 4) for S, K, M, C in calls)
+    return err, t, sum(2 * B * S * K * C for S, K, M, C in calls), nbytes
+
+
 # ------------------------------------------------------------- phase 3 path
+
+
+def make_requests(cfg, seed: int, n_requests: int, b: int = B) -> list:
+    """``n_requests`` requests of ``b`` synthetic samples for ``cfg``'s
+    model: dicts of stacked numpy arrays, the model's inputs (partial cloud,
+    and an image and a class one-hot where it takes them) and ``gt``."""
+    data = SyntheticPCN({"N_POINTS": int(cfg.num_points), "N_PARTIAL": N_PARTIAL,
+                         "LENGTH": b * n_requests, "SEED": seed, "WITH_IMG": "Img" in cfg.NAME,
+                         "WITH_CLS": "Seg" in cfg.NAME, "others": {"subset": "test"}})
+    samples = [data.get(i, None)[2] for i in range(len(data))]
+    return [{k: np.stack([s[k] for s in samples[r * b:(r + 1) * b]]) for k in samples[0]}
+            for r in range(n_requests)]
+
+
+def model_args(model, batch: dict, dev) -> list:
+    """The model's inputs of a request (``model.inputs``), on ``dev``."""
+    return [torch.from_numpy(batch[k]).to(dev) for k in model.inputs]
 
 
 def serve(model, cfg, batches, dev):
     """Answer each request; returns per-request seconds and the metrics."""
     secs, scores = [], []
     n_fine, nq = int(cfg.num_points), int(cfg.num_query)
-    for partial, gt in batches:
+    for batch in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            x = torch.from_numpy(partial).to(dev)
-            coarse, fine = model(x)
-            f, l1, l2 = eval_metric_suite(fine, torch.from_numpy(gt).to(dev))
+            coarse, fine = model(*model_args(model, batch, dev))
+            f, l1, l2 = eval_metric_suite(fine, torch.from_numpy(batch["gt"]).to(dev))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        n = partial.shape[0]
+        n = batch["partial"].shape[0]
         require(tuple(coarse.shape) == (n, nq, 3), f"coarse shape {tuple(coarse.shape)}")
         require(tuple(fine.shape) == (n, n_fine, 3), f"fine shape {tuple(fine.shape)}")
         require(bool(torch.isfinite(coarse).all() and torch.isfinite(fine).all()), "non-finite output")
         scores.append((float(f), float(l1), float(l2)))
+        require(all(np.isfinite(v) for v in scores[-1]), f"non-finite metrics {scores[-1]}")
     return secs, scores
 
 
-def cpu_agreement(model, cpu_model, partial, gt, dev) -> dict:
-    """The card's answer to one cloud against the CPU's (same weights).
+def cpu_agreement(model, cpu_model, batch: dict, dev) -> dict:
+    """The card's answer to one request against the CPU's (same weights).
 
     Near-tied ranking scores (all about 0.5 at a random init) may be
     ordered differently on the two devices, which permutes the queries and
@@ -449,15 +554,15 @@ def cpu_agreement(model, cpu_model, partial, gt, dev) -> dict:
     as sets: the share of points of each with a counterpart in the other
     within 1e-4 (float32 rounding through 14 blocks is far below that)."""
     with torch.inference_mode():
-        gc, gf = model(torch.from_numpy(partial).to(dev))
-        cc, cf = cpu_model(torch.from_numpy(partial))
+        gc, gf = model(*model_args(model, batch, dev))
+        cc, cf = cpu_model(*model_args(cpu_model, batch, "cpu"))
         out = {}
         for name, a, b in (("coarse", gc, cc.to(dev)), ("fine", gf, cf.to(dev))):
             d1, d2, _, _ = ops.nn_distance_eval(a, b)
             out[f"{name}_matched"] = float(min((d1 < 1e-8).float().mean(), (d2 < 1e-8).float().mean()))
             out[f"{name}_hausdorff"] = float(max(d1.max(), d2.max()).sqrt())
-        out["cd_l1_card"] = float(eval_metric_suite(gf, torch.from_numpy(gt).to(dev))[1])
-        out["cd_l1_cpu"] = float(eval_metric_suite(cf, torch.from_numpy(gt))[1])
+        out["cd_l1_card"] = float(eval_metric_suite(gf, torch.from_numpy(batch["gt"]).to(dev))[1])
+        out["cd_l1_cpu"] = float(eval_metric_suite(cf, torch.from_numpy(batch["gt"]))[1])
     return out
 
 
@@ -492,6 +597,90 @@ def profile_run(run) -> dict:
         "ported_kernels_share": sum(ours.values()) * 1e3 / total, "ported_kernels_ms": ours,
         "launches": len(kernels), "top": [[k[:80], v / 1e3] for k, v in top],
     }
+
+
+# ------------------------------------------------------------ phase 5 path
+
+
+def card_vs_cpu_selections(model, cpu_model, batch: dict, dev) -> dict:
+    """:func:`cpu_agreement` for a segmentation model, counting GDANet's
+    discrete selections (its feature-space kNN rows and the GDM's sharp and
+    gentle orders, all through ``top_k_indices``) that differ between the
+    card's and the CPU's run."""
+    picks = {"cuda": [], "cpu": []}
+    original = port_gdanet.top_k_indices
+
+    def record(scores, k):
+        idx = original(scores, k)
+        picks[scores.device.type].append(idx.cpu())
+        return idx
+
+    port_gdanet.top_k_indices = record
+    try:
+        out = cpu_agreement(model, cpu_model, batch, dev)
+    finally:
+        port_gdanet.top_k_indices = original
+    require(len(picks["cuda"]) == len(picks["cpu"]) > 0, "GDANet's selections were not recorded")
+    out["gdanet_selections"] = sum(a.numel() for a in picks["cpu"])
+    out["gdanet_selections_differ"] = [int((a != b).sum()) for a, b in zip(picks["cuda"], picks["cpu"])]
+    return out
+
+
+def branch_phase(seed: int, dev, card: str):
+    """Phase 5: the superset's requests, profile and card-vs-CPU check,
+    then one request each of the other two branch models; returns each
+    path's launch counts and the superset's summary."""
+    cfg = cfg_from_yaml_file(SUPERSET).model
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 5: {SUPERSET} built on {dev}, {n_params} parameters, {time.perf_counter() - t0:.1f} s")
+    batches = make_requests(cfg, seed, REQUESTS + 1)
+    serve(model, cfg, batches[:1], dev)  # warm-up request (cuDNN and cuBLAS handles)
+    _build.reset_launches()
+    secs, scores = serve(model, cfg, batches[1:], dev)
+    calls = dict(request_calls(cfg), scatter_add_rows=[], nn_one_direction=[])
+    counts = {cfg.NAME: check_launches("the superset's requests", calls, REQUESTS)}
+    for r, (sec, (f, l1, l2)) in enumerate(zip(secs, scores)):
+        log(f"phase 5: request {r}: {B} x ({N_PARTIAL} points, 224x224 image, class) -> "
+            f"{B}x{int(cfg.num_points)} in {sec * 1e3:.1f} ms; CD-L1 {l1:.4f} CD-L2 {l2:.4f} F@0.01 {f:.4f}")
+    log(f"phase 5: median superset request {statistics.median(secs) * 1e3:.1f} ms on {card}; launches "
+        f"per request {json.dumps({k: v // REQUESTS for k, v in counts[cfg.NAME].items()})}")
+    prof = profile_run(lambda: serve(model, cfg, [batches[1]], dev)[0][0])
+    log("phase 5: one profiled superset request: " + json.dumps(prof))
+
+    # batch 2 against the CPU, the last ranking layer scaled by 1000 on both
+    # (as card_vs_cpu_step does) so that near-tied scores pick the same queries
+    cpu_model = build_model(cfg, device="cpu", seed=seed)
+    for m in (model, cpu_model):
+        with torch.no_grad():
+            m.base_model.query_ranking[4].weight.mul_(1000.0)
+    agree = card_vs_cpu_selections(model, cpu_model, {k: v[:2] for k, v in batches[1].items()}, dev)
+    log("phase 5: card vs CPU at batch 2: " + json.dumps(agree))
+    require(min(agree["coarse_matched"], agree["fine_matched"]) >= 0.99,
+            "the superset: the card's clouds disagree with the CPU's")
+    require(abs(agree["cd_l1_card"] - agree["cd_l1_cpu"]) <= 1e-2 * agree["cd_l1_cpu"],
+            "the superset: the card's CD-L1 disagrees with the CPU's")
+    del model, cpu_model
+
+    for path in BRANCH_CONFIGS:
+        bcfg = cfg_from_yaml_file(path).model
+        m = build_model(bcfg, device="cuda", seed=seed)
+        reqs = make_requests(bcfg, seed, 2)
+        serve(m, bcfg, reqs[:1], dev)
+        _build.reset_launches()
+        (sec,), ((f, l1, l2),) = serve(m, bcfg, reqs[1:], dev)
+        calls = dict(request_calls(bcfg), scatter_add_rows=[], nn_one_direction=[])
+        counts[bcfg.NAME] = check_launches(f"a {bcfg.NAME} request", calls, 1)
+        log(f"phase 5: {bcfg.NAME}: one request of {B} in {sec * 1e3:.1f} ms; CD-L1 {l1:.4f} "
+            f"F@0.01 {f:.4f}; launches {json.dumps(counts[bcfg.NAME])}")
+        del m
+    summary = {"batch": B, "request_ms": [t * 1e3 for t in secs],
+               "median_request_ms": statistics.median(secs) * 1e3,
+               "profiled_request": {k: v for k, v in prof.items() if k != "top"},
+               "card_vs_cpu": {k: agree[k] for k in ("coarse_matched", "fine_matched",
+                                                      "gdanet_selections", "gdanet_selections_differ")}}
+    return counts, summary
 
 
 # ------------------------------------------------------------ phase 4 path
@@ -672,14 +861,24 @@ def main(argv=None) -> int:
     # the kernels serving does not run: one train step's scatters, and the
     # two masked passes of one test cloud at batch size 1
     train_calls = train_step_calls(cfg)
+    # the segmentation models' GDANet pass: on the superset's ranked
+    # queries and on SegEncAdaPoinTr's encoder centres
+    seg_cfgs = [cfg_from_yaml_file(p).model for p in (SUPERSET, BRANCH_CONFIGS[0])]
+    seg = [gdanet_calls(int(c.num_query)) for c in seg_cfgs[:1]]
+    seg += [gdanet_calls(int(c.center_num[1])) for c in seg_cfgs[1:]]
     check_calls = dict(calls, scatter_add_rows=train_calls["scatter_add_rows"],
-                       nn_one_direction=[(n_fine, n_fine)] * 2)
-    # a train step's shapes of the kernels serving times, compared at B_TRAIN
-    extra = {name: train_calls[name] for name in calls}
+                       nn_one_direction=[(n_fine, n_fine)] * 2,
+                       weighted_gather_sum=seg[0]["weighted_gather_sum"])
+    # shapes the timed calls do not cover: a train step's at B_TRAIN, the
+    # segmentation models' GDANet pass at B
+    extra = {name: [(B_TRAIN, c) for c in train_calls[name]]
+             + [(B, c) for table in seg for c in table.get(name, [])] for name in calls}
+    extra["weighted_gather_sum"] = [(B, c) for c in seg[1]["weighted_gather_sum"]]
     g = torch.Generator().manual_seed(args.seed)
     checks = {"knn": check_knn, "fps": check_fps, "gather_rows": check_gather,
               "nn_bidir_argmin": check_bidir, "scatter_add_rows": check_scatter,
-              "nn_one_direction": check_one_direction}
+              "nn_one_direction": check_one_direction,
+              "weighted_gather_sum": check_weighted_gather_sum}
     results = {}
     for name, check in checks.items():
         results[name] = err, t, _, _ = check(check_calls[name], extra.get(name, []), g, dev)
@@ -693,15 +892,7 @@ def main(argv=None) -> int:
     model = build_model(cfg, device="cuda", seed=args.seed)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"phase 3: {CONFIG} built on {dev}, {n_params} parameters, {time.perf_counter() - t0:.1f} s")
-    data = SyntheticPCN({"N_POINTS": int(cfg.num_points), "N_PARTIAL": N_PARTIAL,
-                         "LENGTH": B * (REQUESTS + 1), "SEED": args.seed,
-                         "others": {"subset": "test"}})
-    samples = [data.get(i, None)[2] for i in range(len(data))]
-    batches = [
-        (np.stack([s["partial"] for s in samples[r * B:(r + 1) * B]]),
-         np.stack([s["gt"] for s in samples[r * B:(r + 1) * B]]))
-        for r in range(REQUESTS + 1)
-    ]
+    batches = make_requests(cfg, args.seed, REQUESTS + 1)
     serve(model, cfg, batches[:1], dev)  # warm-up request (cuBLAS handles, caches)
     _build.reset_launches()
     secs, scores = serve(model, cfg, batches[1:], dev)
@@ -715,7 +906,7 @@ def main(argv=None) -> int:
 
     # one request against the same weights on the CPU, plain versions throughout
     agree = cpu_agreement(model, build_model(cfg, device="cpu", seed=args.seed),
-                          batches[1][0][:1], batches[1][1][:1], dev)
+                          {k: v[:1] for k, v in batches[1].items()}, dev)
     log("phase 3: card vs CPU on one cloud: " + json.dumps(agree))
     require(min(agree["coarse_matched"], agree["fine_matched"]) >= 0.99,
             "the card's clouds disagree with the CPU's")
@@ -736,6 +927,10 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     log("phase 4: card vs CPU, one step at batch 2: " + json.dumps(agree))
 
+    # ---- phase 5: the image and segmentation serving path at full width
+    branch_counts, superset_summary = branch_phase(args.seed, dev, card)
+    counts.update(branch_counts)
+
     kernels = []
     for name in _build.KERNELS:
         err, t, n_ops, nbytes = results[name]
@@ -743,9 +938,10 @@ def main(argv=None) -> int:
         src, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            # over the four driven paths; each path's counts were read on their own
+            # over every driven path; each path's counts were read on their own
             "launches": launches[name] + sum(c[name] for c in counts.values()),
             "launches_per_request": launches[name] // REQUESTS,
+            "launches_per_superset_request": counts["ImgEncSegDecAdaPoinTrVariableLoss"][name] // REQUESTS,
             "launches_per_train_step": counts["train"][name] // TRAIN_STEPS,
             "launches_validate": counts["validate"][name], "launches_test": counts["test"][name],
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -753,10 +949,11 @@ def main(argv=None) -> int:
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
             "library_ms": t["library_ms"],
         })
-    # the two paths' readings again, so that the end of the output carries them
+    # the paths' readings again, so that the end of the output carries them
     log("summary: " + json.dumps({"card": card, "serving": serve_summary, "training": train_summary,
                                   "card_vs_cpu_step": {k: agree[k] for k in (
-                                      "total_loss_rel_diff", "grad_norm_rel_diff")}}))
+                                      "total_loss_rel_diff", "grad_norm_rel_diff")},
+                                  "superset_serving": superset_summary}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

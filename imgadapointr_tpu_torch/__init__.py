@@ -7,5 +7,7 @@ ops, each kernel-backed op with a plain PyTorch version beside it),
 ``ops/_build.py``), ``nn/``, ``models/``, ``utils/``, ``datasets/``,
 ``tools/``. Ported so far: the flagship AdaPoinTr's serving path with the
 eval metrics, and its training path (losses, backward, AdamW, schedules,
-checkpoints, the train / validate / test runner; entry point ``main.py``).
+checkpoints, the train / validate / test runner; entry point ``main.py``);
+the eval path of the image and segmentation models (ImgAdaPoinTr,
+SegEncAdaPoinTr and the superset ImgEncSegDecAdaPoinTrVariableLoss).
 """

@@ -1,7 +1,7 @@
-"""Synthetic PCN-shaped clouds: the port's own copy of the numpy generator
-in ``imgadapointr_tpu/datasets/synthetic.py:22-80``, so the port's requests
-are the same clouds the JAX ``--synthetic`` path makes for the same seed
-and index."""
+"""Synthetic PCN-shaped samples: the port's own copy of the numpy generator
+in ``imgadapointr_tpu/datasets/synthetic.py:22-80``, images and class
+one-hots included, so the port's requests are the samples the JAX
+``--synthetic`` path makes for the same seed and index."""
 
 from __future__ import annotations
 
@@ -33,15 +33,16 @@ def _surface_points(rng: np.random.Generator, n: int) -> np.ndarray:
 
 
 class SyntheticPCN:
-    """PCN-shaped synthetic data (point clouds only; the image and class
-    inputs of the JAX generator wait for their branches). Config keys:
-    N_POINTS (gt size), N_PARTIAL (default 2048), LENGTH, others.subset,
-    SEED."""
+    """PCN-shaped synthetic data. Config keys: N_POINTS (gt size),
+    N_PARTIAL (default 2048), LENGTH, WITH_IMG (a 224x224x3 image in [0, 1)),
+    WITH_CLS (a 16-way class one-hot), others.subset, SEED."""
 
     def __init__(self, config, **kw):
         self.npoints = int(config.get("N_POINTS", 16384))
         self.n_partial = int(config.get("N_PARTIAL", 2048))
         self.length = int(config.get("LENGTH", 64))
+        self.with_img = bool(config.get("WITH_IMG", False))
+        self.with_cls = bool(config.get("WITH_CLS", False))
         self.subset = config["others"]["subset"] if "others" in config else config.get("subset", "train")
         self.seed = int(config.get("SEED", 1234))
 
@@ -65,4 +66,10 @@ class SyntheticPCN:
         take = srng.integers(0, len(vis), self.n_partial)
         partial = vis[take] + srng.normal(0, 0.005, (self.n_partial, 3)).astype(np.float32)
         out = {"partial": partial.astype(np.float32), "gt": gt}
+        if self.with_img:
+            out["img"] = srng.uniform(0, 1, (224, 224, 3)).astype(np.float32)
+        if self.with_cls:
+            cls_vec = np.zeros(16, np.float32)
+            cls_vec[idx % 16] = 1
+            out["cls_vec"] = cls_vec
         return _TAXONOMIES[idx % len(_TAXONOMIES)], f"synthetic_{idx:06d}", out

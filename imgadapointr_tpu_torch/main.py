@@ -27,16 +27,22 @@ from .utils.parser import get_args
 
 def swap_synthetic(config, train_len: int | None = None) -> None:
     """Point every dataset split at SyntheticPCN, keeping the model's
-    shapes. ``train_len`` falls back to $SYN_TRAIN_LEN, then 64."""
+    shapes, with images for an image model and class one-hots for a
+    segmentation model (by name, as ``main.py:114-115`` of the JAX package
+    decides). ``train_len`` falls back to $SYN_TRAIN_LEN, then 64."""
     if train_len is None:
         train_len = int(os.environ.get("SYN_TRAIN_LEN", 64))
     n_points = int(config.model.get("num_points", 16384))
     for split in ("train", "val", "test"):
         if split in config.dataset:
-            others = dict(config.dataset[split].get("others", {}))
+            sub = config.dataset[split]
+            names = (sub.get("NAME", ""), config.model.NAME)
             config.dataset[split] = {
                 "NAME": "SyntheticPCN", "N_POINTS": n_points,
-                "LENGTH": int(train_len) if split == "train" else 16, "others": others,
+                "LENGTH": int(train_len) if split == "train" else 16,
+                "WITH_IMG": any("Img" in n for n in names),
+                "WITH_CLS": any("Seg" in n for n in names),
+                "others": dict(sub.get("others", {})),
             }
 
 

@@ -32,6 +32,9 @@ def rebuild_factor(config) -> int:
 
 
 class AdaPoinTr(nn.Module):
+    # the batch entries the model takes, in the order of its arguments
+    inputs = ("partial",)
+
     def __init__(self, config):
         super().__init__()
         if config.decoder_type != "fc":
@@ -50,13 +53,17 @@ class AdaPoinTr(nn.Module):
 
     def forward(self, xyz: torch.Tensor, bn_momentum: float = 0.1,
                 generator: torch.Generator | None = None,
-                noise: torch.Tensor | None = None):
+                noise: torch.Tensor | None = None, img_feat: torch.Tensor | None = None,
+                seg_fn=None, cls_vec: torch.Tensor | None = None):
         """``bn_momentum`` is the torch-style BatchNorm momentum of this call
         (the BN-momentum schedule's value); ``generator`` / ``noise`` feed
         the denoise jitter (see :class:`PCTransformer`). All three matter
-        in train mode only."""
+        in train mode only. ``img_feat``, ``seg_fn`` and ``cls_vec`` feed
+        the image and segmentation branches of the models built on this
+        one (``models/img_adapointr.py``, ``models/seg_adapointr.py``)."""
         self.increase_dim[1].momentum = bn_momentum
-        q, coarse, L = self.base_model(xyz, generator=generator, noise=noise)
+        q, coarse, L = self.base_model(xyz, img_feat=img_feat, seg_fn=seg_fn, cls_vec=cls_vec,
+                                       generator=generator, noise=noise)
         B = q.shape[0]
         global_feature = self.increase_dim(q).amax(dim=1)  # (B, 1024)
         rf = self.reduce_map(global_feature[:, None], q, coarse)
@@ -68,15 +75,22 @@ class AdaPoinTr(nn.Module):
         return coarse[:, :-L], coarse[:, -L:], denoised_fine, pred_fine
 
 
+def place(model: nn.Module, device="cuda", seed: int = 0,
+          dtype: torch.dtype = torch.float32) -> nn.Module:
+    """``model`` with its seeded init (:func:`init_weights_`), in eval mode
+    on ``device`` (load a checkpoint over the weights with
+    ``load_state_dict``)."""
+    dev = resolve_device(device)
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    return model.to(device=dev, dtype=dtype).eval()
+
+
 @MODELS.register_module(name="AdaPoinTr")
 def build_adapointr(config, device="cuda", seed: int = 0,
                     dtype: torch.dtype = torch.float32) -> AdaPoinTr:
     """AdaPoinTr in eval mode on ``device``, weights from a seeded flax-style
     init (load a checkpoint over them with ``load_state_dict``)."""
-    dev = resolve_device(device)
-    model = AdaPoinTr(config)
-    init_weights_(model, torch.Generator().manual_seed(seed))
-    return model.to(device=dev, dtype=dtype).eval()
+    return place(AdaPoinTr(config), device, seed, dtype)
 
 
 def build_model(config, device="cuda", seed: int = 0, dtype: torch.dtype = torch.float32):

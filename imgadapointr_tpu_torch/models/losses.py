@@ -3,7 +3,7 @@
 Counterpart of ``imgadapointr_tpu/models/losses.py:18-42``: the denoise
 CD-L1 on kNN-gathered targets, times 0.5, and the reconstruction loss
 CD-L1(coarse) + CD-L1(fine). ``cycle_alpha`` (the variable-loss schedule)
-waits for the image branch (ROADMAP Queue 1: ImgAdaPoinTr).
+waits for the superset's training slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations

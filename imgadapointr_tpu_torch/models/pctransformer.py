@@ -5,7 +5,20 @@ grouper -> positional embedding + input projection -> encoder -> global
 feature -> coarse prediction + FPS query candidates -> query ranking
 (top num_query) -> mlp_query -> decoder. In train mode ``DENOISE_LENGTH``
 jittered FPS points of the input are appended to the ranked queries as
-denoise queries. The image / segmentation fusions wait for later slices.
+denoise queries.
+
+The image and segmentation branches (``:76-151`` there) are switched on by
+the config's flags, which the registry builders of ``models/img_adapointr.py``
+and ``models/seg_adapointr.py`` set: the image fusion after the encoder
+(``use_img_features``, unless ``img_before_dec``), and one segmentation
+fusion shared by the encoder tokens (``seg_before_enc``, GDANet on the
+centres) and the decoder queries (``seg_before_dec``, GDANet on the
+non-denoise queries). The ResNet18 trunk (``im_encoder``) and the frozen
+GDANet (``segmentator``) live here, where the reference keeps them, so the
+state dict has the reference's keys; the model wrapper runs them and
+passes ``img_feat`` and ``seg_fn`` in. The config's ``img_size`` (default
+224, the reference's) sets the image projection's width: the trunk's
+spatial positions, 196 at 224².
 """
 
 from __future__ import annotations
@@ -16,7 +29,10 @@ from torch import nn
 from .. import ops
 from ..nn.blocks import decoder_from_config, encoder_from_config
 from ..nn.grouper import DGCNNGrouper
+from ..nn.image_encoders import ResNet18Encoder
 from ..nn.layers import ConcatDense, Linear
+from .fusion import SEG_FEATURES, AttentionFusion, image_tokens_width
+from .gdanet import GDANet
 
 
 DENOISE_LENGTH = 64  # reference AdaPoinTr.py:126-129
@@ -30,10 +46,6 @@ def _mlp2(a: int, b: int, c: int) -> nn.Sequential:
 class PCTransformer(nn.Module):
     def __init__(self, config):
         super().__init__()
-        if config.get("use_img_features", False) or config.get("use_seg_features", False):
-            raise NotImplementedError(
-                "image / segmentation branches wait (ROADMAP Queue 1)"
-            )
         if config.encoder_type != "graph":
             raise NotImplementedError(f"encoder_type {config.encoder_type!r}: only 'graph' is ported")
         enc, dec = config.encoder_config, config.decoder_config
@@ -60,14 +72,35 @@ class PCTransformer(nn.Module):
         )
         self.decoder = decoder_from_config(dec)
 
-    def forward(self, xyz: torch.Tensor, generator: torch.Generator | None = None,
-                noise: torch.Tensor | None = None):
-        """(q, coarse, denoise_length). ``generator`` draws the denoise
-        jitter in train mode; ``noise`` (B, DENOISE_LENGTH, 3), standard
-        normal, replaces the draw."""
+        self.img_fusion = self.seg_fusion = None
+        if config.get("use_img_features", False):
+            self.im_encoder = ResNet18Encoder()
+            if not config.get("img_before_dec", False):
+                width = image_tokens_width(int(config.get("img_size", 224)))
+                self.img_fusion = AttentionFusion(self, "img", C, width)
+        self.seg_before_enc = self.seg_before_dec = False
+        if config.get("use_seg_features", False):
+            self.segmentator = GDANet(50)
+            self.seg_fusion = AttentionFusion(self, "seg", C, SEG_FEATURES)
+            self.seg_before_enc = bool(config.get("seg_before_enc", False))
+            self.seg_before_dec = bool(config.get("seg_before_dec", False))
+
+    def forward(self, xyz: torch.Tensor, img_feat: torch.Tensor | None = None,
+                seg_fn=None, cls_vec: torch.Tensor | None = None,
+                generator: torch.Generator | None = None, noise: torch.Tensor | None = None):
+        """(q, coarse, denoise_length). ``img_feat`` (B, 256, positions) are
+        the image tokens, ``seg_fn(points, cls_vec)`` gives GDANet's
+        (B, n, 128) features of n points; each is needed only when its
+        branch is on. ``generator`` draws the denoise jitter in train mode;
+        ``noise`` (B, DENOISE_LENGTH, 3), standard normal, replaces the
+        draw."""
         B = xyz.shape[0]
         coor, f = self.grouper(xyz, self.center_num)
         x = self.encoder(self.input_proj(f) + self.pos_embed(coor), coor)
+        if self.img_fusion is not None:
+            x = self.img_fusion(x, img_feat)
+        if self.seg_before_enc:
+            x = self.seg_fusion(x, seg_fn(coor, cls_vec))
 
         global_feature = self.increase_dim(x).amax(dim=1)  # (B, gfd)
         coarse = self.coarse_pred(global_feature).reshape(B, self.num_query, 3)
@@ -91,4 +124,8 @@ class PCTransformer(nn.Module):
         q = self.mlp_query[0](global_feature[:, None, :], coarse)
         q = self.mlp_query[1:](q)
         q = self.decoder(q, mem, coarse, coor, denoise_length=denoise_length)
+        if self.seg_before_dec:  # on the non-denoise queries only
+            n_real = q.shape[1] - denoise_length
+            q_real = self.seg_fusion(q[:, :n_real], seg_fn(coarse[:, :n_real], cls_vec))
+            q = torch.cat([q_real, q[:, n_real:]], dim=1) if denoise_length else q_real
         return q, coarse, denoise_length

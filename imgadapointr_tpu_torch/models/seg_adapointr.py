@@ -1,0 +1,89 @@
+"""The segmentation models: frozen GDANet features fused into AdaPoinTr.
+
+Counterpart of ``imgadapointr_tpu/models/seg_adapointr.py:33-177``:
+
+- ``SegEncAdaPoinTr``: GDANet's features of the encoder centres fused into
+  the encoder tokens (``seg_before_enc``);
+- ``ImgEncSegDecAdaPoinTrVariableLoss`` (the superset): the image fused
+  after the encoder, GDANet's features of the ranked queries fused into the
+  decoder's output (``seg_before_dec``).
+
+GDANet takes the points, their normals (k = 30) and the class one-hot.
+Eval only in the port so far (see ``models/img_adapointr.py``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..ops import estimate_pointcloud_normals
+from ..utils.registry import MODELS
+from .adapointr import AdaPoinTr, place
+from .gdanet import GDANet
+from .img_adapointr import TRAINING_NOT_PORTED, branch_config
+
+
+def _scrambled_normals(coor: torch.Tensor) -> torch.Tensor:
+    """The normals exactly as the reference feeds them to GDANet.
+
+    The reference passes (B, N, 3) normals to GDANet, whose
+    ``local_operator_withnorm`` views them as (B, 3, N): a reinterpretation
+    of the buffer, not a transpose (``seg_adapointr.py:33-48``). So the
+    (B, N, 3) buffer is read as (B, 3, N) and that is transposed, which
+    scrambles the channels, as the reference (and a converted reference
+    checkpoint) does.
+    """
+    normals = estimate_pointcloud_normals(coor, 30)
+    B, N, _ = normals.shape
+    return normals.reshape(B, 3, N).transpose(1, 2)
+
+
+def seg_features(gdanet: GDANet, coor: torch.Tensor, cls_vec: torch.Tensor) -> torch.Tensor:
+    """GDANet's (B, n, 128) feature tap for the points ``coor`` (B, n, 3)."""
+    coor = coor.contiguous()
+    feat, _ = gdanet(coor, _scrambled_normals(coor), cls_vec)
+    return feat
+
+
+class SegEncAdaPoinTr(AdaPoinTr):
+    """(partial (B, N, 3), cls_vec (B, 16)) -> (coarse, fine), eval only."""
+
+    inputs = ("partial", "cls_vec")
+
+    def forward(self, xyz: torch.Tensor, cls_vec: torch.Tensor, **train_args):
+        """``train_args`` as in :meth:`ImgAdaPoinTr.forward`; train mode raises."""
+        if self.training:
+            raise NotImplementedError(TRAINING_NOT_PORTED)
+        seg_fn = functools.partial(seg_features, self.base_model.segmentator)
+        return super().forward(xyz, seg_fn=seg_fn, cls_vec=cls_vec)
+
+
+class ImgEncSegDecAdaPoinTr(AdaPoinTr):
+    """(partial (B, N, 3), img (B, H, W, 3), cls_vec (B, 16)) -> (coarse,
+    fine), eval only."""
+
+    inputs = ("partial", "img", "cls_vec")
+
+    def forward(self, xyz: torch.Tensor, img: torch.Tensor, cls_vec: torch.Tensor, **train_args):
+        """``train_args`` as in :meth:`ImgAdaPoinTr.forward`; train mode raises."""
+        if self.training:
+            raise NotImplementedError(TRAINING_NOT_PORTED)
+        seg_fn = functools.partial(seg_features, self.base_model.segmentator)
+        return super().forward(xyz, img_feat=self.base_model.im_encoder(img), seg_fn=seg_fn,
+                               cls_vec=cls_vec)
+
+
+@MODELS.register_module(name="SegEncAdaPoinTr")
+def build_seg_enc(config, device="cuda", seed: int = 0,
+                  dtype: torch.dtype = torch.float32) -> SegEncAdaPoinTr:
+    cfg = branch_config(config, use_img=False, use_seg=True, seg_before_enc=True)
+    return place(SegEncAdaPoinTr(cfg), device, seed, dtype)
+
+
+@MODELS.register_module(name="ImgEncSegDecAdaPoinTrVariableLoss")
+def build_img_enc_seg_dec(config, device="cuda", seed: int = 0,
+                          dtype: torch.dtype = torch.float32) -> ImgEncSegDecAdaPoinTr:
+    cfg = branch_config(config, use_img=True, use_seg=True, seg_before_dec=True)
+    return place(ImgEncSegDecAdaPoinTr(cfg), device, seed, dtype)

@@ -149,6 +149,37 @@ class CrossAttention(nn.Module):
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
+class MultiheadAttention(nn.Module):
+    """The parameters of ``torch.nn.MultiheadAttention(dim, num_heads)``
+    (``in_proj_weight`` packing the q, k and v projections by rows,
+    ``in_proj_bias``, ``out_proj``), computed with the port's own matmul and
+    softmax (:func:`_sdpa`) so that no fused attention path chooses the
+    numerics. ``forward(x, mem)`` attends from ``x`` to ``mem``; self
+    attention is ``forward(x, x)``. Counterpart of the JAX package's
+    ``CrossAttention`` / ``Attention`` with ``qkv_bias=True``, the form its
+    fusion stacks use (``imgadapointr_tpu/models/fusion.py:22-47``)."""
+
+    def __init__(self, dim: int, num_heads: int = 8):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.scale = (dim // num_heads) ** -0.5
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        M, H = mem.shape[1], self.num_heads
+        w, b = self.in_proj_weight, self.in_proj_bias
+
+        def heads(t, i, n):
+            t = F.linear(t, w[i * C:(i + 1) * C], b[i * C:(i + 1) * C])
+            return t.reshape(B, n, H, C // H).transpose(1, 2)
+
+        out = _sdpa(heads(x, 0, N), heads(mem, 1, M), heads(mem, 2, M), self.scale)
+        return self.out_proj(out.transpose(1, 2).reshape(B, N, C))
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis, eps 1e-5, with torch-style momentum
     read at call time from ``self.momentum`` (the BN-momentum schedule sets
@@ -209,12 +240,20 @@ class GroupNorm(nn.Module):
 
 
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded flax-style init: every Linear / ConcatDense weight drawn in
-    module order from ``generator``, biases zero; norms keep ones/zeros."""
+    """Seeded init, every weight drawn in module order from ``generator``:
+    Linear, ConcatDense and the attention projections flax-style (truncated
+    normal, std 0.02, biases zero), convolutions as torchvision's ResNet
+    draws them (Kaiming normal, fan out); norms keep their own values."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (Linear, ConcatDense)):
                 trunc_normal_flax_(m.weight, 0.02, generator)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, MultiheadAttention):
+                trunc_normal_flax_(m.in_proj_weight, 0.02, generator)
+                m.in_proj_bias.zero_()
+            elif isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu",
+                                        generator=generator)
     return model

@@ -12,6 +12,8 @@ from .chamfer import (
     nn_one_direction,
     nn_one_direction_plain,
 )
+from .gather_sum import weighted_gather_sum, weighted_gather_sum_plain
+from .normals import estimate_pointcloud_normals
 from .pointops import (
     fps,
     fps_plain,
@@ -35,5 +37,6 @@ __all__ = [
     "fps_plain", "furthest_point_sample", "gather_points", "gather_rows",
     "gather_rows_plain", "index_points", "jitter_points", "knn_plain",
     "knn_point", "knn_with_distance", "scatter_add_rows",
-    "scatter_add_rows_plain",
+    "scatter_add_rows_plain", "estimate_pointcloud_normals", "weighted_gather_sum",
+    "weighted_gather_sum_plain",
 ]

@@ -43,12 +43,13 @@ _SIGNATURES = {
     "nn_bidir_argmin_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "scatter_add_rows_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "nn_one_direction_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "weighted_gather_sum_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
 }
 
 # Launches per kernel since the last reset_launches(); launch() adds one
 # each time it launches a kernel, and nothing else touches these counts.
 KERNELS = ("nn_bidir_argmin", "knn", "fps", "gather_rows", "scatter_add_rows",
-           "nn_one_direction")
+           "nn_one_direction", "weighted_gather_sum")
 _launches = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()

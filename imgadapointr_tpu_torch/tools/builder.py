@@ -62,7 +62,7 @@ def build_opt_sched(config, steps_per_epoch: int, model):
     if int(config.get("step_per_update", 1)) != 1:
         raise NotImplementedError(
             "step_per_update > 1 (gradient accumulation) is not ported "
-            "(ROADMAP Queue 1: the segmentation family)"
+            "(ROADMAP Queue 1: the superset training slice)"
         )
     kwargs = opt_cfg.kwargs
     base_lr = float(kwargs.lr)

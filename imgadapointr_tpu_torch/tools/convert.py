@@ -1,13 +1,16 @@
 """Weights and optimizer state into the port: flax trees, optax AdamW
 moments and reference torch checkpoints.
 
-:func:`state_dict_from_flax` carries a flax AdaPoinTr tree (nested dicts of
-numpy arrays) across to the port's state dict. It keeps its own copy of the
-flagship part of the JAX package's mapping
-(``imgadapointr_tpu/tools/convert_torch.py:123-318``), inverted as
-``export_adapointr_torch`` inverts it: a flax kernel (in, out) becomes a
-torch weight (out, in) (with trailing 1-dims for the reference's 1x1
-convolutions), ConcatDense parts are stacked back by rows, norms and BN
+:func:`state_dict_from_flax` carries a flax tree (nested dicts of numpy
+arrays) of AdaPoinTr, ImgAdaPoinTr, SegEncAdaPoinTr or the superset across
+to the port's state dict. It keeps its own copy of the JAX package's
+mapping (``imgadapointr_tpu/tools/convert_torch.py:123-318`` for the
+AdaPoinTr core, ``:319-406`` and ``convert_gdanet`` for the fusion stacks,
+the ResNet trunk and GDANet), inverted as ``export_adapointr_torch``
+inverts it: a flax kernel (in, out) becomes a torch weight (out, in) (with
+trailing 1-dims for the reference's 1x1 convolutions), ConcatDense parts
+are stacked back by rows, the split q / k / v maps are packed into
+``in_proj_*``, convolution kernels go from HWIO to OIHW, norms and BN
 statistics copy across. Because the port's parameters carry the reference
 names, the result loads with ``model.load_state_dict(sd, strict=True)``.
 
@@ -15,7 +18,9 @@ names, the result loads with ``model.load_state_dict(sd, strict=True)``.
 (``mu``, ``nu`` and the step ``count``) across the same mapping into a
 ``torch.optim.AdamW.state_dict()``, so the port can continue a JAX run.
 
-:func:`load_reference_state` reads a reference-layout ``.pth``/``.pt``.
+:func:`load_reference_state` reads a reference-layout ``.pth``/``.pt``;
+:func:`load_gdanet_weights` loads a reference GDANet checkpoint into the
+port's GDANet (``--gdanet_w``).
 """
 
 from __future__ import annotations
@@ -23,12 +28,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.gdanet import BLOCKS as GDANET_BLOCKS
+
+# models whose flax tree keeps the AdaPoinTr core under ``core`` beside
+# their image encoder and / or GDANet (imgadapointr_tpu/models/*_adapointr.py)
+BRANCH_MODELS = {  # name: (image branch, segmentation branch)
+    "ImgResNetEncAdaPoinTrVariableLoss": (True, False),
+    "SegEncAdaPoinTr": (False, True),
+    "ImgEncSegDecAdaPoinTrVariableLoss": (True, True),
+}
+
 
 def _mapping(config) -> list:
-    """[(torch key, kind, flax path or paths, kernel dims)] for the
-    point-only AdaPoinTr tree with graph / attn block tokens and the fc
-    head. kind: 'linear' | 'concat' | 'param' | 'stats'."""
+    """[(torch key, kind, flax path or paths, kernel dims)] for the AdaPoinTr
+    tree with graph / attn block tokens and the fc head, and for the image
+    and segmentation models built on it (:data:`BRANCH_MODELS`). kind:
+    'linear' (kernel, transposed), 'concat' (ConcatDense parts stacked),
+    'stack' (several kernels, each transposed, stacked by rows: a packed
+    ``in_proj_weight``), 'cat' (several vectors joined), 'conv' (HWIO ->
+    OIHW), 'param', 'stats' (BatchNorm running statistics), 'counter'
+    (BatchNorm's ``num_batches_tracked``, which flax does not keep)."""
     m: list = []
+    img, seg = BRANCH_MODELS.get(config.get("NAME"), (False, False))
+    core = ("core",) if config.get("NAME") in BRANCH_MODELS else ()
 
     def linear(tk, fp, bias=True, kernel_dims=0):
         m.append((f"{tk}.weight", "linear", fp + ("kernel",), kernel_dims))
@@ -44,7 +66,13 @@ def _mapping(config) -> list:
         m.append((f"{tk}.weight", "concat", parts, 0))
         m.append((f"{tk}.bias", "param", fp + ("part0", "bias"), 0))
 
-    bm = ("base_model",)
+    def batchnorm(tk, fp):
+        norm(tk, fp)
+        m.append((f"{tk}.running_mean", "stats", fp + ("mean",), 0))
+        m.append((f"{tk}.running_var", "stats", fp + ("var",), 0))
+        m.append((f"{tk}.num_batches_tracked", "counter", (), 0))
+
+    bm = core + ("base_model",)
     enc, dec = config.encoder_config, config.decoder_config
     linear("base_model.grouper.input_trans", bm + ("grouper", "input_trans"), kernel_dims=1)
     for i in range(1, 5):
@@ -116,16 +144,66 @@ def _mapping(config) -> list:
         linear(f"{tp}.mlp.fc1", fp + ("mlp", "fc1"))
         linear(f"{tp}.mlp.fc2", fp + ("mlp", "fc2"))
 
-    linear("increase_dim.0", ("increase_dim1",), kernel_dims=1)
-    norm("increase_dim.1", ("increase_dim_bn",))
-    m.append(("increase_dim.1.running_mean", "stats", ("increase_dim_bn", "mean"), 0))
-    m.append(("increase_dim.1.running_var", "stats", ("increase_dim_bn", "var"), 0))
-    linear("increase_dim.3", ("increase_dim2",), kernel_dims=1)
-    concat("reduce_map", ("reduce_map",), 3)
+    linear("increase_dim.0", core + ("increase_dim1",), kernel_dims=1)
+    batchnorm("increase_dim.1", core + ("increase_dim_bn",))
+    linear("increase_dim.3", core + ("increase_dim2",), kernel_dims=1)
+    concat("reduce_map", core + ("reduce_map",), 3)
     if config.decoder_type != "fc":
         raise NotImplementedError(f"decoder_type {config.decoder_type!r} has no port yet")
-    concat("decode_head.layer.fc1", ("decode_head", "layer_fc1"), 2)
-    linear("decode_head.layer.fc2", ("decode_head", "layer_fc2"))
+    concat("decode_head.layer.fc1", core + ("decode_head", "layer_fc1"), 2)
+    linear("decode_head.layer.fc2", core + ("decode_head", "layer_fc2"))
+
+    def fusion(tag, fp):
+        """get_better_{tag}_size + 5 attention layers + 5 LayerNorms
+        (imgadapointr_tpu/tools/convert_torch.py:319-366, inverted)."""
+        linear(f"base_model.get_better_{tag}_size.0", fp + ("proj",))
+        fp = fp + ("fusion",)
+        for i in (1, 2, 3):
+            tk, cp = f"base_model.cross_attn_{tag}{i}", fp + (f"cross{i}",)
+            maps = ("q_map", "k_map", "v_map")
+            m.append((f"{tk}.in_proj_weight", "stack", tuple(cp + (n, "kernel") for n in maps), 0))
+            m.append((f"{tk}.in_proj_bias", "cat", tuple(cp + (n, "bias") for n in maps), 0))
+            linear(f"{tk}.out_proj", cp + ("proj",))
+        for i in (1, 2):
+            tk, sp = f"base_model.self_attn_{tag}{i}", fp + (f"self{i}",)
+            m.append((f"{tk}.in_proj_weight", "linear", sp + ("qkv", "kernel"), 0))
+            m.append((f"{tk}.in_proj_bias", "param", sp + ("qkv", "bias"), 0))
+            linear(f"{tk}.out_proj", sp + ("proj",))
+        for i in range(1, 6):
+            norm(f"base_model.layer_norm_{tag}{i}", fp + (f"ln{i}",))
+
+    if img and not config.get("img_before_dec", False):
+        fusion("img", bm + ("img_fusion",))
+    if seg:
+        fusion("seg", bm + ("seg_fusion",))
+    if img:  # torchvision's ResNet18 through layer3 (convert_torch.py:369-406)
+        tp, fp = "base_model.im_encoder.base", ("im_encoder", "trunk")
+        m.append((f"{tp}.0.weight", "conv", fp + ("stem_conv", "kernel"), 0))
+        batchnorm(f"{tp}.1", fp + ("stem_bn",))
+        for s in range(3):
+            for b in range(2):
+                tb, fb = f"{tp}.{4 + s}.{b}", fp + (f"layer{s + 1}_{b}",)
+                for i in (1, 2):
+                    m.append((f"{tb}.conv{i}.weight", "conv", fb + (f"conv{i}", "kernel"), 0))
+                    batchnorm(f"{tb}.bn{i}", fb + (f"bn{i}",))
+                if s > 0 and b == 0:
+                    m.append((f"{tb}.downsample.0.weight", "conv", fb + ("down_conv", "kernel"), 0))
+                    batchnorm(f"{tb}.downsample.1", fb + ("down_bn",))
+    if seg:  # GDANet (convert_torch.py:convert_gdanet, inverted)
+        tp, fp = "base_model.segmentator", ("segmentator",)
+        for conv, bn, _, _ in GDANET_BLOCKS:
+            linear(f"{tp}.{conv}.0", fp + (f"{conv}_conv",))
+            batchnorm(f"{tp}.{bn}", fp + (f"{conv}_bn",))
+        linear(f"{tp}.conv8", fp + ("conv8",))
+        for sg in ("SGCAM_1s", "SGCAM_1g", "SGCAM_2s", "SGCAM_2g"):
+            for n in ("g", "theta", "phi"):
+                linear(f"{tp}.{sg}.{n}", fp + (sg, n))
+            linear(f"{tp}.{sg}.W.0", fp + (sg, "W_conv"))
+            m.append((f"{tp}.{sg}.W.1.weight", "param", fp + (sg, "W_bn_scale"), 0))
+            m.append((f"{tp}.{sg}.W.1.bias", "param", fp + (sg, "W_bn_bias"), 0))
+            m.append((f"{tp}.{sg}.W.1.running_mean", "stats", fp + (sg, "W_bn_mean"), 0))
+            m.append((f"{tp}.{sg}.W.1.running_var", "stats", fp + (sg, "W_bn_var"), 0))
+            m.append((f"{tp}.{sg}.W.1.num_batches_tracked", "counter", (), 0))
     return m
 
 
@@ -145,25 +223,34 @@ def _params_from_flax(params, config) -> dict[str, np.ndarray]:
             out[tkey] = w.reshape(w.shape + (1,) * kernel_dims)
         elif kind == "concat":
             out[tkey] = np.concatenate([_leaf(params, p) for p in path], axis=0).T
+        elif kind == "stack":
+            out[tkey] = np.concatenate([_leaf(params, p).T for p in path], axis=0)
+        elif kind == "cat":
+            out[tkey] = np.concatenate([_leaf(params, p) for p in path], axis=0)
+        elif kind == "conv":
+            out[tkey] = np.transpose(_leaf(params, path), (3, 2, 0, 1))
         elif kind == "param":
             out[tkey] = _leaf(params, path)
     return out
 
 
 def state_dict_from_flax(params, batch_stats, config) -> dict[str, torch.Tensor]:
-    """flax AdaPoinTr ``params`` / ``batch_stats`` (nested dicts of numpy
-    arrays) -> the port's float32 state dict (reference key layout)."""
+    """flax ``params`` / ``batch_stats`` (nested dicts of numpy arrays) of
+    AdaPoinTr or of a model of :data:`BRANCH_MODELS` (``config.NAME``) ->
+    the port's float32 state dict (reference key layout)."""
     sd = _params_from_flax(params, config)
+    out = {}
     for tkey, kind, path, _ in _mapping(config):
         if kind == "stats":
             sd[tkey] = _leaf(batch_stats, path)
+        elif kind == "counter":
+            out[tkey] = torch.tensor(0, dtype=torch.int64)
     # the reference's encoder norm is defined but never applied
     # (base_blocks.py:429-431): exported as the identity
     dim = int(config.encoder_config.embed_dim)
     sd["base_model.encoder.norm.weight"] = np.ones(dim)
     sd["base_model.encoder.norm.bias"] = np.zeros(dim)
-    out = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
-    out["increase_dim.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    out.update({k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()})
     return out
 
 
@@ -194,6 +281,56 @@ def adamw_state_from_optax(mu, nu, count: int, config, model, optimizer) -> dict
                 }
             index += 1
     return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def _fit_gdanet(src: dict, own: dict) -> dict:
+    """The entries of ``src`` (a reference GDANet state dict) that the
+    port's GDANet, whose state dict is ``own``, takes: a pointwise weight
+    may come as ``(out, in)`` or with the trailing 1-dims of the
+    reference's Conv1d / Conv2d. Raises on any other shape."""
+    taken = {}
+    for key, want in own.items():
+        if key not in src:
+            continue
+        v = src[key]
+        if tuple(v.shape[:want.dim()]) != tuple(want.shape) or any(d != 1 for d in v.shape[want.dim():]):
+            raise ValueError(f"GDANet {key}: shape {tuple(v.shape)}, the port takes {tuple(want.shape)}")
+        taken[key] = v.reshape(want.shape).to(want.dtype)
+    return taken
+
+
+def load_gdanet_weights(path: str, gdanet: torch.nn.Module) -> list[str]:
+    """``--gdanet_w``: a reference GDANet part-segmentation checkpoint into
+    ``gdanet`` (the port's ``models.gdanet.GDANet``); returns the keys of
+    ``gdanet`` it did not fill.
+
+    Like the reference's load (``strict=False``) every key of the port's
+    GDANet that the checkpoint holds is taken (see :func:`_fit_gdanet`).
+    Raises when nothing matches: a wrong file would otherwise leave a random
+    frozen GDANet (``imgadapointr_tpu/tools/convert_torch.py:625-640``)."""
+    src = load_reference_state(path)
+    own = gdanet.state_dict()
+    taken = _fit_gdanet(src, own)
+    if not taken:
+        raise ValueError(f"no GDANet weights matched in {path} (checkpoint keys: {list(src)[:5]}...)")
+    gdanet.load_state_dict(taken, strict=False)
+    return sorted(set(own) - set(taken))
+
+
+def fit_reference_state(sd: dict, model: torch.nn.Module) -> dict:
+    """A reference-layout state dict ``sd`` for ``model``: under a frozen
+    GDANet (``base_model.segmentator``) the pointwise weights drop the
+    reference's trailing 1-dims and the entries the port does not keep
+    (the reference holds each BatchNorm twice, also under ``convN.1``) are
+    left out; every other entry stays as it is, for a strict load."""
+    gdanet = getattr(model.base_model, "segmentator", None)
+    if gdanet is None:
+        return sd
+    prefix = "base_model.segmentator."
+    seg = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    out = {k: v for k, v in sd.items() if not k.startswith(prefix)}
+    out.update({prefix + k: v for k, v in _fit_gdanet(seg, gdanet.state_dict()).items()})
+    return out
 
 
 def load_reference_state(path: str) -> dict[str, torch.Tensor]:

@@ -54,6 +54,8 @@ def get_args(argv=None):
 def build(args):
     config = cfg_from_yaml_file(args.model_config)
     model = build_model(config.model, device=args.device)
+    if model.inputs != ("partial",):  # as in the JAX package, clouds only
+        raise ValueError(f"{config.model.NAME} takes {model.inputs}: this CLI reads point clouds only")
     model.load_state_dict(load_reference_state(args.model_checkpoint), strict=True)
     return config, model
 

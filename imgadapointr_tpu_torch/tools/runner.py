@@ -27,7 +27,7 @@ from ..utils.device import resolve_device
 from ..utils.logger import print_log
 from ..utils.metrics import METRIC_NAMES, Metrics, compute_metrics, eval_metric_suite
 from .builder import ZERO_GRAD_PARAM_MARKERS, build_opt_sched, dataset_builder
-from .convert import load_reference_state
+from .convert import fit_reference_state, load_gdanet_weights, load_reference_state
 
 SHAPENET_DICT_PATH = os.path.join("cfgs", "shapenet_synset_dict.json")
 EVAL_KEYS = ("sparse_l1", "sparse_l2", "dense_l1", "dense_l2", "f_score")
@@ -43,6 +43,8 @@ class Runner:
         self.device = resolve_device(getattr(args, "device", "cuda"))
         seed = int(getattr(args, "seed", 0))
         self.model = build_model(config.model, device=self.device, seed=seed)
+        if getattr(args, "gdanet_w", None):
+            load_gdanet(self.model, args.gdanet_w, logger)
         self.factor = rebuild_factor(config.model)
         self.consider_metric = config.get("consider_metric", "CDL1")
         self.grad_clip = float(config.get("grad_norm_clip", 10.0))
@@ -62,9 +64,15 @@ class Runner:
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
 
+    def _inputs(self, batch: dict) -> list:
+        """The batch entries the model takes (``model.inputs``), in order."""
+        return [batch[k] for k in self.model.inputs]
+
     # ------------------------------------------------------------- train step
     def train_step(self, batch: dict, epoch_f: float, noise: torch.Tensor | None = None) -> dict:
-        """One optimizer step on ``batch`` ({'partial', 'gt'}): forward in
+        """One optimizer step on ``batch`` ({'partial', 'gt'}; the image and
+        segmentation models raise ``NotImplementedError``: their training
+        is not ported yet): forward in
         train mode with the scheduled BN momentum, the AdaPoinTr loss,
         backward, clip, AdamW at the scheduled lr. Returns device scalars
         (no synchronisation): sparse_loss, dense_loss, total_loss, grad_norm
@@ -76,7 +84,7 @@ class Runner:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        ret = self.model(batch["partial"], bn_momentum=self.bnm_sched(epoch_f),
+        ret = self.model(*self._inputs(batch), bn_momentum=self.bnm_sched(epoch_f),
                          generator=self.generator, noise=noise)
         sparse, dense = adapointr_loss(ret, batch["gt"], self.factor)
         total = sparse + dense
@@ -97,7 +105,7 @@ class Runner:
         """(B, 5) per-sample metrics in EVAL_KEYS order and the (coarse,
         dense) clouds: one nearest-neighbour pass per cloud pair."""
         self.model.eval()
-        coarse, dense = self.model(batch["partial"])
+        coarse, dense = self.model(*self._inputs(batch))
         gt = batch["gt"]
         d1, d2, _, _ = nn_distance(coarse, gt)
         sparse_l1 = (_sqrt_floor(d1).mean(dim=1) + _sqrt_floor(d2).mean(dim=1)) / 2.0 * 1000.0
@@ -134,7 +142,20 @@ class Runner:
     def load_weights(self, path: str) -> None:
         """Weights only, from a checkpoint of this runner or a
         reference-layout ``.pth``; optimizer and schedules stay fresh."""
-        self.model.load_state_dict(load_reference_state(path), strict=True)
+        sd = fit_reference_state(load_reference_state(path), self.model)
+        self.model.load_state_dict(sd, strict=True)
+
+
+def load_gdanet(model, path: str, logger=None) -> None:
+    """``--gdanet_w``: a reference GDANet checkpoint into the model's frozen
+    ``segmentator`` (reference tools/runner.py:55-66, ``strict=False``);
+    raises when nothing matches or the model has no GDANet."""
+    gdanet = getattr(model.base_model, "segmentator", None)
+    if gdanet is None:
+        raise ValueError(f"--gdanet_w: {type(model).__name__} has no GDANet")
+    missing = load_gdanet_weights(path, gdanet)
+    print_log(f"GDANet weights loaded from {path}"
+              + (f"; {len(missing)} keys kept their init: {missing[:5]}" if missing else ""), logger)
 
 
 # ---------------------------------------------------------------------- train

@@ -29,6 +29,8 @@ def get_args(argv=None):
                         help="--synthetic train-split length (default $SYN_TRAIN_LEN or 64)")
     parser.add_argument("--no_emd", dest="emd", action="store_false", default=True,
                         help="skip EMD in --test (it is not ported yet and is always skipped)")
+    parser.add_argument("--gdanet_w", type=str, default=None,
+                        help="reference GDANet checkpoint for the segmentation models' frozen GDANet")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 

@@ -1,4 +1,4 @@
-"""The port's six CUDA kernels against their plain PyTorch versions.
+"""The port's seven CUDA kernels against their plain PyTorch versions.
 
 These need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 ``imgadapointr_tpu_torch/csrc`` at first use); elsewhere each test skips
@@ -7,12 +7,15 @@ machine with a card it runs on its own:
 
     python -m pytest tests/test_torch_kernels.py -q --noconftest
 
-Tolerance: none, but for the scatter-add. Every other kernel repeats its
-plain version's arithmetic (diff-form distances without FMA contraction,
-first index on ties), so indices are equal and values bit-equal. The
-scatter-add sums with float32 atomics in no fixed order: it is held to
-1e-5 of each element's sum of absolute contributions, and to bit-equality
-where every row receives one contribution.
+Tolerance: none, but for the scatter-add and the weighted gather-sum.
+Every other kernel repeats its plain version's arithmetic (diff-form
+distances without FMA contraction, first index on ties), so indices are
+equal and values bit-equal. The scatter-add sums with float32 atomics in no
+fixed order: it is held to 1e-5 of each element's sum of absolute
+contributions, and to bit-equality where every row receives one
+contribution. The weighted gather-sum adds with fused multiply-adds in
+ascending order, the plain version with PyTorch's reduction: 1e-5 of each
+element's sum of absolute terms.
 """
 
 import pytest
@@ -209,3 +212,36 @@ def test_nn_distance_gradients_agree_with_plain_path(dev, masked):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
     for a, b in zip(outs["cuda"][4:], outs["cpu"][4:]):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("B,S,K,M,C", [(8, 512, 63, 512, 64), (2, 100, 7, 50, 3), (3, 77, 40, 130, 12),
+                                       (1, 64, 70, 64, 1000), (2, 33, 5, 20, 1100), (2, 5, 0, 9, 8)])
+def test_weighted_gather_sum_kernel_agrees_with_plain(dev, B, S, K, M, C):
+    """GDANet's shape (K 63, C 64), narrow and odd widths, K over one
+    staged chunk, widths past one block's threads, K = 0; a third of the
+    indices out of range, which contribute nothing."""
+    g = torch.Generator().manual_seed(S + K + C)
+    w = _cloud(g, B, S, K, device=dev)
+    idx = torch.randint(-M // 2, M + M // 2, (B, S, K), generator=g).to(dev)
+    feats = _cloud(g, B, M, C, device=dev)
+    got = _launched("weighted_gather_sum", lambda: ops.weighted_gather_sum(w, idx, feats))
+    want = ops.weighted_gather_sum_plain(w, idx, feats)
+    room = 1e-5 * ops.weighted_gather_sum_plain(w.abs(), idx, feats.abs())
+    assert bool(((got - want).abs() <= room).all())
+    dropped = ops.weighted_gather_sum(w.masked_fill((idx >= 0) & (idx < M), 0.0), idx, feats)
+    assert int(dropped.count_nonzero()) == 0
+
+
+def test_weighted_gather_sum_kernel_refuses_what_it_cannot_take(dev):
+    w = torch.ones(1, 4, 3, device=dev)
+    idx = torch.zeros(1, 4, 3, dtype=torch.int64, device=dev)
+    feats = torch.ones(1, 5, 8, device=dev)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        ops.weighted_gather_sum(w, idx, feats.requires_grad_())
+    feats = feats.detach()
+    with pytest.raises(TypeError):
+        ops.weighted_gather_sum(w.double(), idx, feats.double())
+    with pytest.raises(ValueError):
+        ops.weighted_gather_sum(w, idx.cpu(), feats)
+    with pytest.raises(ValueError):
+        ops.weighted_gather_sum(w, idx, feats.transpose(1, 2).contiguous().transpose(1, 2))
