@@ -18,6 +18,7 @@ from ..nn.heads import SimpleRebuildFCLayer
 from ..nn.layers import BatchNorm, ConcatDense, Linear, init_weights_
 from ..utils.device import resolve_device
 from ..utils.registry import MODELS
+from .losses import adapointr_loss, variable_alpha
 from .pctransformer import PCTransformer
 
 
@@ -34,6 +35,8 @@ def rebuild_factor(config) -> int:
 class AdaPoinTr(nn.Module):
     # the batch entries the model takes, in the order of its arguments
     inputs = ("partial",)
+    # the coarse term's weight: 1, or the variable-loss schedule of the epoch
+    variable_loss = False
 
     def __init__(self, config):
         super().__init__()
@@ -49,7 +52,8 @@ class AdaPoinTr(nn.Module):
             Linear(1024, 1024, kernel_dims=1),
         )
         self.reduce_map = ConcatDense((1024, trans_dim, 3), trans_dim)
-        self.decode_head = SimpleRebuildFCLayer(trans_dim * 2, step=rebuild_factor(config))
+        self.factor = rebuild_factor(config)
+        self.decode_head = SimpleRebuildFCLayer(trans_dim * 2, step=self.factor)
 
     def forward(self, xyz: torch.Tensor, bn_momentum: float = 0.1,
                 generator: torch.Generator | None = None,
@@ -74,6 +78,20 @@ class AdaPoinTr(nn.Module):
         denoised_fine = rebuild[:, -L:].reshape(B, -1, 3)
         return coarse[:, :-L], coarse[:, -L:], denoised_fine, pred_fine
 
+    def loss(self, ret, gt: torch.Tensor, epoch_f: float):
+        """``(loss_denoised, loss_recon)`` of the train-mode return ``ret``
+        at the float epoch ``epoch_f`` (the JAX package's
+        ``ModelSpec.loss_fn``)."""
+        alpha = variable_alpha(epoch_f) if self.variable_loss else 1.0
+        return adapointr_loss(ret, gt, self.factor, coarse_alpha=alpha)
+
+
+class AdaPoinTrVariableLoss(AdaPoinTr):
+    """AdaPoinTr trained with the variable coarse loss (the point-only
+    ablation, ``imgadapointr_tpu/models/img_adapointr.py:67-78``)."""
+
+    variable_loss = True
+
 
 def place(model: nn.Module, device="cuda", seed: int = 0,
           dtype: torch.dtype = torch.float32) -> nn.Module:
@@ -91,6 +109,12 @@ def build_adapointr(config, device="cuda", seed: int = 0,
     """AdaPoinTr in eval mode on ``device``, weights from a seeded flax-style
     init (load a checkpoint over them with ``load_state_dict``)."""
     return place(AdaPoinTr(config), device, seed, dtype)
+
+
+@MODELS.register_module(name="AdaPoinTrVariableLoss")
+def build_adapointr_variable_loss(config, device="cuda", seed: int = 0,
+                                  dtype: torch.dtype = torch.float32) -> AdaPoinTrVariableLoss:
+    return place(AdaPoinTrVariableLoss(config), device, seed, dtype)
 
 
 def build_model(config, device="cuda", seed: int = 0, dtype: torch.dtype = torch.float32):

@@ -8,12 +8,17 @@ Module (:func:`gdm`, which splits the points into the sharp and the gentle
 ones by the graph Laplacian) and two SGCAM attentions; a 50-way head whose
 penultimate 128-d features are the tap.
 
-Frozen: every BatchNorm runs on its running statistics whatever the
-module's mode (:meth:`GDANet.train` keeps it in eval mode), and its
-dropouts are the identity, as in the JAX package. Parameter names follow
-the reference checkpoint: ``convN.0`` for the pointwise convolution of a
-block and ``bnN`` for its BatchNorm, ``conv8`` for the head,
-``SGCAM_*.{g,theta,phi,W.0,W.1}``. Pointwise weights are ``(out, in)``;
+Frozen: its parameters take no gradient (``requires_grad`` is off from
+the moment the owning model is built), every BatchNorm runs on its running
+statistics whatever the module's mode (:meth:`GDANet.train` keeps it in
+eval mode), and its dropouts are the identity, as in the JAX package. The
+gradient does flow through it into its input points (the reference does
+not detach, ``imgadapointr_tpu/models/seg_adapointr.py:64-81``): the
+selections are constants, the gathers carry it. The GDM's neighbour sum
+only ranks the points, so no gradient reaches the weighted gather-sum's
+backward. Parameter names follow the reference checkpoint: ``convN.0``
+for the pointwise convolution of a block and ``bnN`` for its BatchNorm,
+``conv8`` for the head, ``SGCAM_*.{g,theta,phi,W.0,W.1}``. Pointwise weights are ``(out, in)``;
 the reference's trailing 1-dims are dropped when a checkpoint is loaded
 (``tools/convert.py:load_gdanet_weights``).
 
@@ -85,10 +90,17 @@ def gdm(x: torch.Tensor, M: int, k: int = 64, tau: float = 0.2, sigma: float = 2
 
 
 class SGCAM(nn.Module):
-    """Sharp-Gentle Complementary Attention (``gdanet.py:119-165``, eval
-    form): non-local attention from x (B, N, C) onto x2 (B, M, C) as
+    """Sharp-Gentle Complementary Attention (``gdanet.py:119-165``):
+    non-local attention from x (B, N, C) onto x2 (B, M, C) as
     ``W = θφᵀ / M`` then ``W g``, a pointwise projection, a BatchNorm whose
-    scale starts at zero, and the residual."""
+    scale starts at zero, and the residual.
+
+    ``commute=True`` takes the product as ``θ (φᵀ g) / M`` (``:147-149``):
+    no softmax sits between the two products, so the forms are equal up to
+    rounding, and the (B, N, M) matrix is never formed, forward or
+    backward. The segmentation models commute in train mode and keep the
+    reference's order in eval, the choice of the JAX package's accelerator
+    path (``seg_adapointr.py:51-61``); the port makes it on every device."""
 
     def __init__(self, in_channels: int):
         super().__init__()
@@ -99,10 +111,14 @@ class SGCAM(nn.Module):
         self.W = nn.Sequential(Linear(inter, in_channels), BatchNorm(in_channels))
         nn.init.zeros_(self.W[1].weight)
 
-    def forward(self, x: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x2: torch.Tensor, commute: bool = False) -> torch.Tensor:
         g, theta, phi = self.g(x2), self.theta(x), self.phi(x2)
-        attn = torch.matmul(theta, phi.transpose(1, 2)) / x2.shape[1]  # (B, N, M)
-        return self.W(torch.matmul(attn, g)) + x
+        if commute:
+            y = torch.matmul(theta, torch.matmul(phi.transpose(1, 2), g)) / x2.shape[1]
+        else:
+            attn = torch.matmul(theta, phi.transpose(1, 2)) / x2.shape[1]  # (B, N, M)
+            y = torch.matmul(attn, g)
+        return self.W(y) + x
 
 
 # (conv, BatchNorm, in, out) of the pointwise blocks, reference names
@@ -151,20 +167,22 @@ class GDANet(nn.Module):
         idx, _, _ = _knn_desc(x, min(k, x.shape[1]))
         return getattr(self, self._bn[conv])(index_points(u, idx) - v[:, :, None, :])
 
-    def forward(self, coor: torch.Tensor, normals: torch.Tensor, cls_vec: torch.Tensor):
+    def forward(self, coor: torch.Tensor, normals: torch.Tensor, cls_vec: torch.Tensor,
+                commute: bool = False):
+        """``commute``: the SGCAMs' reassociated product (:class:`SGCAM`)."""
         B, N, _ = coor.shape
         # block 1, with the normals
         x1 = local_operator_withnorm(coor, normals, k=min(30, N))  # (B, N, k, 9)
         x1 = self._conv_bn(self._conv_bn(x1, "conv1"), "conv11").amax(dim=2)  # (B, N, 64)
         x1h, x1l = gdm(x1, M=512)
-        x1h, x1l = self.SGCAM_1s(x1, x1h), self.SGCAM_1g(x1, x1l)
+        x1h, x1l = self.SGCAM_1s(x1, x1h, commute), self.SGCAM_1g(x1, x1l, commute)
         x1 = self._conv_bn(torch.cat([x1h, x1l], dim=-1), "conv12")
 
         # block 2
         x1t = torch.cat([coor, x1], dim=-1)  # (B, N, 67)
         x2 = self._conv_bn(F.relu(self._edge_conv_commuted(x1t, 30, "conv2")), "conv21").amax(dim=2)
         x2h, x2l = gdm(x2, M=512)
-        x2h, x2l = self.SGCAM_2s(x2, x2h), self.SGCAM_2g(x2, x2l)
+        x2h, x2l = self.SGCAM_2s(x2, x2h, commute), self.SGCAM_2g(x2, x2l, commute)
         x2 = self._conv_bn(torch.cat([x2h, x2l], dim=-1), "conv22")
 
         # block 3

@@ -1,12 +1,11 @@
 """ImgAdaPoinTr: AdaPoinTr with ResNet18 image features fused into the
-encoder tokens (registry name ``ImgResNetEncAdaPoinTrVariableLoss``).
+encoder tokens (registry name ``ImgResNetEncAdaPoinTrVariableLoss``),
+trained with the variable coarse loss.
 
 Counterpart of ``imgadapointr_tpu/models/img_adapointr.py:32-64``
 (reference ``models/internal/ImgResNetEncAdaPoinTrVariableLoss.py``). The
 reference sets its flags by mutating the config inside the class; here the
-registry builder sets them on a copy. Eval only in the port so far: the
-variable coarse-loss weight and the training path come with the
-superset's training slice (ROADMAP Queue 1).
+registry builder sets them on a copy.
 """
 
 from __future__ import annotations
@@ -16,11 +15,6 @@ import torch
 from ..utils.config import AttrDict
 from ..utils.registry import MODELS
 from .adapointr import AdaPoinTr, place
-
-TRAINING_NOT_PORTED = (
-    "training of the image and segmentation models is not ported yet: it comes with "
-    "the superset's training slice (ROADMAP Queue 1: the superset training slice)"
-)
 
 
 def branch_config(config, use_img: bool, use_seg: bool, seg_before_enc: bool = False,
@@ -33,16 +27,17 @@ def branch_config(config, use_img: bool, use_seg: bool, seg_before_enc: bool = F
 
 
 class ImgAdaPoinTr(AdaPoinTr):
-    """(partial (B, N, 3), img (B, H, W, 3)) -> (coarse, fine), eval only."""
+    """(partial (B, N, 3), img (B, H, W, 3)) -> AdaPoinTr's return."""
 
     inputs = ("partial", "img")
+    variable_loss = True
 
-    def forward(self, xyz: torch.Tensor, img: torch.Tensor, **train_args):
-        """``train_args`` are AdaPoinTr's train-mode arguments
-        (``bn_momentum``, ``generator``, ``noise``); train mode raises."""
-        if self.training:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
-        return super().forward(xyz, img_feat=self.base_model.im_encoder(img))
+    def forward(self, xyz: torch.Tensor, img: torch.Tensor, bn_momentum: float = 0.1,
+                generator: torch.Generator | None = None, noise: torch.Tensor | None = None):
+        """``bn_momentum``, ``generator`` and ``noise`` as in
+        :meth:`AdaPoinTr.forward`; the momentum reaches the ResNet too."""
+        return super().forward(xyz, bn_momentum=bn_momentum, generator=generator, noise=noise,
+                               img_feat=self.base_model.im_encoder(img, bn_momentum))
 
 
 @MODELS.register_module(name="ImgResNetEncAdaPoinTrVariableLoss")

@@ -1,12 +1,14 @@
 """Loss functions of the model zoo.
 
-Counterpart of ``imgadapointr_tpu/models/losses.py:18-42``: the denoise
+Counterpart of ``imgadapointr_tpu/models/losses.py:18-59``: the denoise
 CD-L1 on kNN-gathered targets, times 0.5, and the reconstruction loss
-CD-L1(coarse) + CD-L1(fine). ``cycle_alpha`` (the variable-loss schedule)
-waits for the superset's training slice (ROADMAP Queue 1).
+alpha · CD-L1(coarse) + CD-L1(fine), with alpha 1 (AdaPoinTr) or the
+variable-loss schedule :func:`variable_alpha` of the float epoch.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -30,3 +32,22 @@ def adapointr_loss(ret, gt: torch.Tensor, factor: int, coarse_alpha: float = 1.0
     loss_denoised = 0.5 * chamfer_l1(denoised_fine, target)
     loss_recon = coarse_alpha * chamfer_l1(pred_coarse, gt) + chamfer_l1(pred_fine, gt)
     return loss_denoised, loss_recon
+
+
+def cycle_alpha(epoch: float, step_size: float = 5, max_lr: float = 1.0, base_lr: float = 0.01,
+                gamma: float = 0.995) -> float:
+    """The CycleLR value the variable loss uses as its coarse alpha
+    (reference ``models/base_blocks.py:771-783``), in float64."""
+    e = float(epoch)
+    cycle = math.floor(1.0 + e / (2 * step_size))
+    x = abs(e / step_size - 2 * cycle + 1)
+    return base_lr + (max_lr - base_lr) * max(0.0, 1.0 - x) * gamma**e
+
+
+ALPHA_STEP_SIZE = 5  # the reference's alpha table is CycleLR shifted by this
+
+
+def variable_alpha(epoch: float) -> float:
+    """The variable loss's coarse alpha at the float epoch ``epoch``
+    (``imgadapointr_tpu/models/img_adapointr.py:24-29``)."""
+    return cycle_alpha(epoch + ALPHA_STEP_SIZE)

@@ -80,7 +80,7 @@ class PCTransformer(nn.Module):
                 self.img_fusion = AttentionFusion(self, "img", C, width)
         self.seg_before_enc = self.seg_before_dec = False
         if config.get("use_seg_features", False):
-            self.segmentator = GDANet(50)
+            self.segmentator = GDANet(50).requires_grad_(False)  # frozen
             self.seg_fusion = AttentionFusion(self, "seg", C, SEG_FEATURES)
             self.seg_before_enc = bool(config.get("seg_before_enc", False))
             self.seg_before_dec = bool(config.get("seg_before_dec", False))

@@ -8,8 +8,11 @@ Counterpart of ``imgadapointr_tpu/models/seg_adapointr.py:33-177``:
   after the encoder, GDANet's features of the ranked queries fused into the
   decoder's output (``seg_before_dec``).
 
-GDANet takes the points, their normals (k = 30) and the class one-hot.
-Eval only in the port so far (see ``models/img_adapointr.py``).
+GDANet takes the points, their normals (k = 30) and the class one-hot. It
+is frozen (``models/gdanet.py``); in train mode its SGCAMs take the
+commuted product. ``SegEncAdaPoinTr`` trains with AdaPoinTr's loss, the
+superset with the variable coarse loss (``seg_adapointr.py:156``,
+``:172-174`` there).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from ..ops import estimate_pointcloud_normals
 from ..utils.registry import MODELS
 from .adapointr import AdaPoinTr, place
 from .gdanet import GDANet
-from .img_adapointr import TRAINING_NOT_PORTED, branch_config
+from .img_adapointr import branch_config
 
 
 def _scrambled_normals(coor: torch.Tensor) -> torch.Tensor:
@@ -40,39 +43,44 @@ def _scrambled_normals(coor: torch.Tensor) -> torch.Tensor:
     return normals.reshape(B, 3, N).transpose(1, 2)
 
 
-def seg_features(gdanet: GDANet, coor: torch.Tensor, cls_vec: torch.Tensor) -> torch.Tensor:
-    """GDANet's (B, n, 128) feature tap for the points ``coor`` (B, n, 3)."""
+def seg_features(gdanet: GDANet, coor: torch.Tensor, cls_vec: torch.Tensor,
+                 commute: bool = False) -> torch.Tensor:
+    """GDANet's (B, n, 128) feature tap for the points ``coor`` (B, n, 3);
+    ``commute`` selects the SGCAMs' train-mode product."""
     coor = coor.contiguous()
-    feat, _ = gdanet(coor, _scrambled_normals(coor), cls_vec)
+    feat, _ = gdanet(coor, _scrambled_normals(coor), cls_vec, commute=commute)
     return feat
 
 
 class SegEncAdaPoinTr(AdaPoinTr):
-    """(partial (B, N, 3), cls_vec (B, 16)) -> (coarse, fine), eval only."""
+    """(partial (B, N, 3), cls_vec (B, 16)) -> AdaPoinTr's return."""
 
     inputs = ("partial", "cls_vec")
 
-    def forward(self, xyz: torch.Tensor, cls_vec: torch.Tensor, **train_args):
-        """``train_args`` as in :meth:`ImgAdaPoinTr.forward`; train mode raises."""
-        if self.training:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
-        seg_fn = functools.partial(seg_features, self.base_model.segmentator)
-        return super().forward(xyz, seg_fn=seg_fn, cls_vec=cls_vec)
+    def forward(self, xyz: torch.Tensor, cls_vec: torch.Tensor, bn_momentum: float = 0.1,
+                generator: torch.Generator | None = None, noise: torch.Tensor | None = None):
+        """``bn_momentum``, ``generator`` and ``noise`` as in :meth:`AdaPoinTr.forward`."""
+        seg_fn = functools.partial(seg_features, self.base_model.segmentator, commute=self.training)
+        return super().forward(xyz, bn_momentum=bn_momentum, generator=generator, noise=noise,
+                               seg_fn=seg_fn, cls_vec=cls_vec)
 
 
 class ImgEncSegDecAdaPoinTr(AdaPoinTr):
-    """(partial (B, N, 3), img (B, H, W, 3), cls_vec (B, 16)) -> (coarse,
-    fine), eval only."""
+    """(partial (B, N, 3), img (B, H, W, 3), cls_vec (B, 16)) -> AdaPoinTr's
+    return."""
 
     inputs = ("partial", "img", "cls_vec")
+    variable_loss = True
 
-    def forward(self, xyz: torch.Tensor, img: torch.Tensor, cls_vec: torch.Tensor, **train_args):
-        """``train_args`` as in :meth:`ImgAdaPoinTr.forward`; train mode raises."""
-        if self.training:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
-        seg_fn = functools.partial(seg_features, self.base_model.segmentator)
-        return super().forward(xyz, img_feat=self.base_model.im_encoder(img), seg_fn=seg_fn,
-                               cls_vec=cls_vec)
+    def forward(self, xyz: torch.Tensor, img: torch.Tensor, cls_vec: torch.Tensor,
+                bn_momentum: float = 0.1, generator: torch.Generator | None = None,
+                noise: torch.Tensor | None = None):
+        """``bn_momentum``, ``generator`` and ``noise`` as in
+        :meth:`AdaPoinTr.forward`; the momentum reaches the ResNet too."""
+        seg_fn = functools.partial(seg_features, self.base_model.segmentator, commute=self.training)
+        return super().forward(xyz, bn_momentum=bn_momentum, generator=generator, noise=noise,
+                               img_feat=self.base_model.im_encoder(img, bn_momentum),
+                               seg_fn=seg_fn, cls_vec=cls_vec)
 
 
 @MODELS.register_module(name="SegEncAdaPoinTr")

@@ -10,7 +10,9 @@ data give it; the output ``(B, 256, H/16 * W/16)`` makes the 256 channels
 the fusion's tokens, each with its spatial positions as features (196 at
 224²). The convolutions are cuDNN's, in full float32 on the card
 (``utils/device.py`` switches TF32 off): the JAX package computes them
-outside any Pallas kernel too.
+outside any Pallas kernel too. In train mode every BatchNorm takes the
+call's scheduled momentum, as the JAX trunk passes ``bn_momentum`` to each
+(``imgadapointr_tpu/nn/image_encoders.py:31-44,78-88``).
 """
 
 from __future__ import annotations
@@ -56,6 +58,11 @@ class ResNet18Encoder(nn.Module):
             _layer(64, 64, 1), _layer(64, 128, 2), _layer(128, 256, 2),
         )
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
+        """``bn_momentum``: the torch-style BatchNorm momentum of this call
+        (the BN-momentum schedule's value), read in train mode only."""
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.momentum = bn_momentum
         x = self.base(img.permute(0, 3, 1, 2))  # (B, 256, H', W')
         return x.flatten(2)

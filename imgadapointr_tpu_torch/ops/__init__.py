@@ -12,7 +12,15 @@ from .chamfer import (
     nn_one_direction,
     nn_one_direction_plain,
 )
-from .gather_sum import weighted_gather_sum, weighted_gather_sum_plain
+from .emd import auction_top2, auction_top2_plain, emd_auction, emd_distance_metric
+from .gather_sum import (
+    weighted_gather_sum,
+    weighted_gather_sum_dfeats,
+    weighted_gather_sum_dfeats_plain,
+    weighted_gather_sum_dweights,
+    weighted_gather_sum_dweights_plain,
+    weighted_gather_sum_plain,
+)
 from .normals import estimate_pointcloud_normals
 from .pointops import (
     fps,
@@ -38,5 +46,7 @@ __all__ = [
     "gather_rows_plain", "index_points", "jitter_points", "knn_plain",
     "knn_point", "knn_with_distance", "scatter_add_rows",
     "scatter_add_rows_plain", "estimate_pointcloud_normals", "weighted_gather_sum",
-    "weighted_gather_sum_plain",
+    "weighted_gather_sum_plain", "weighted_gather_sum_dfeats", "weighted_gather_sum_dfeats_plain",
+    "weighted_gather_sum_dweights", "weighted_gather_sum_dweights_plain", "auction_top2",
+    "auction_top2_plain", "emd_auction", "emd_distance_metric",
 ]

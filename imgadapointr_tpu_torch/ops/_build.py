@@ -44,12 +44,16 @@ _SIGNATURES = {
     "scatter_add_rows_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "nn_one_direction_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "weighted_gather_sum_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "weighted_gather_sum_dfeats_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "weighted_gather_sum_dweights_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "auction_top2_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
 
 # Launches per kernel since the last reset_launches(); launch() adds one
 # each time it launches a kernel, and nothing else touches these counts.
 KERNELS = ("nn_bidir_argmin", "knn", "fps", "gather_rows", "scatter_add_rows",
-           "nn_one_direction", "weighted_gather_sum")
+           "nn_one_direction", "weighted_gather_sum", "weighted_gather_sum_dfeats",
+           "weighted_gather_sum_dweights", "auction_top2")
 _launches = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()

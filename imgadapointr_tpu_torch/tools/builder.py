@@ -4,9 +4,11 @@ Counterpart of ``imgadapointr_tpu/tools/builder.py`` for the flagship's
 recipe: ``torch.optim.AdamW`` with weight decay on the parameters of more
 than one dimension only (biases and norm scales decay nothing, reference
 ``add_weight_decay``), the learning rate set before every step from the
-epoch schedule at ``step / steps_per_epoch``. Adam, SGD, gradient
-accumulation (``step_per_update > 1``) and frozen subtrees wait for the
-models that use them.
+epoch schedule at ``step / steps_per_epoch``. A frozen subtree (GDANet in
+the segmentation models, whose parameters have ``requires_grad`` off) is in
+neither group, as the reference's ``requires_grad=False`` keeps it out
+(``imgadapointr_tpu/tools/builder.py:166-178``). Adam, SGD and gradient
+accumulation (``step_per_update > 1``) wait for the models that use them.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def build_opt_sched(config, steps_per_epoch: int, model):
     if int(config.get("step_per_update", 1)) != 1:
         raise NotImplementedError(
             "step_per_update > 1 (gradient accumulation) is not ported "
-            "(ROADMAP Queue 1: the superset training slice)"
+            "(ROADMAP Queue 1: gradient accumulation)"
         )
     kwargs = opt_cfg.kwargs
     base_lr = float(kwargs.lr)

@@ -263,7 +263,10 @@ def adamw_state_from_optax(mu, nu, count: int, config, model, optimizer) -> dict
     over ``model``'s parameters (any grouping): load it with
     ``optimizer.load_state_dict``. Parameters without a gradient (the
     query-ranking subtree, which optax tracks with zero moments, and the
-    unused encoder norm) get no state, as torch keeps none for them."""
+    unused encoder norm) get no state, as torch keeps none for them; the
+    frozen GDANet of the segmentation models (``segmentator``, zero
+    moments in optax) is in no parameter group of the port's AdamW and
+    gets none either."""
     from .builder import ZERO_GRAD_PARAM_MARKERS
 
     exp_avg = _params_from_flax(mu, config)
@@ -273,7 +276,8 @@ def adamw_state_from_optax(mu, nu, count: int, config, model, optimizer) -> dict
     for group in optimizer.param_groups:
         for p in group["params"]:
             name = names[id(p)]
-            if name in exp_avg and not any(m in name for m in ZERO_GRAD_PARAM_MARKERS):
+            if (p.requires_grad and name in exp_avg
+                    and not any(m in name for m in ZERO_GRAD_PARAM_MARKERS)):
                 state[index] = {
                     "step": torch.tensor(float(count)),
                     "exp_avg": torch.from_numpy(np.array(exp_avg[name])).to(p),

@@ -2,9 +2,10 @@
 
 Counterpart of ``imgadapointr_tpu/tools/runner.py:94-428`` (the step
 functions) and ``:432-833`` (``run_net``, ``validate``, ``test_net``,
-``test``), single device, eager PyTorch. The ShapeNet-55 and KITTI test
-protocols, gradient accumulation and multi-GPU wait (ROADMAP Queue 1).
-EMD is not ported: ``test`` reports EMDistance 0, as with ``--no_emd``.
+``test``), single device, eager PyTorch. Every model trains with its own
+loss (``model.loss``); ``test`` runs the PCN protocol with the auction EMD
+unless ``--no_emd``. The ShapeNet-55 and KITTI test protocols, gradient
+accumulation and multi-GPU wait (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -17,8 +18,6 @@ import numpy as np
 import torch
 
 from ..models import build_model
-from ..models.adapointr import rebuild_factor
-from ..models.losses import adapointr_loss
 from ..ops import nn_distance
 from ..ops.chamfer import _sqrt_floor
 from ..utils.average_meter import AverageMeter
@@ -45,7 +44,6 @@ class Runner:
         self.model = build_model(config.model, device=self.device, seed=seed)
         if getattr(args, "gdanet_w", None):
             load_gdanet(self.model, args.gdanet_w, logger)
-        self.factor = rebuild_factor(config.model)
         self.consider_metric = config.get("consider_metric", "CDL1")
         self.grad_clip = float(config.get("grad_norm_clip", 10.0))
         # the denoise jitter's stream, on the model's device
@@ -70,14 +68,14 @@ class Runner:
 
     # ------------------------------------------------------------- train step
     def train_step(self, batch: dict, epoch_f: float, noise: torch.Tensor | None = None) -> dict:
-        """One optimizer step on ``batch`` ({'partial', 'gt'}; the image and
-        segmentation models raise ``NotImplementedError``: their training
-        is not ported yet): forward in
-        train mode with the scheduled BN momentum, the AdaPoinTr loss,
-        backward, clip, AdamW at the scheduled lr. Returns device scalars
-        (no synchronisation): sparse_loss, dense_loss, total_loss, grad_norm
-        (before the clip) and the float lr. ``noise`` fixes the denoise
-        jitter's standard-normal draw."""
+        """One optimizer step on ``batch`` (the model's inputs and 'gt'):
+        forward in train mode with the scheduled BN momentum, the model's
+        own loss at the float epoch ``epoch_f``, backward, clip, AdamW at
+        the scheduled lr. Returns device scalars (no synchronisation):
+        sparse_loss, dense_loss, total_loss, grad_norm (the clip's norm,
+        before the clip, over the parameters with a gradient: a frozen
+        GDANet's flow-through gradients stay out) and the float lr.
+        ``noise`` fixes the denoise jitter's standard-normal draw."""
         batch = self._to_device(batch)
         self.model.train()
         lr = self.lr_sched(self.step)
@@ -86,14 +84,15 @@ class Runner:
         self.optimizer.zero_grad(set_to_none=True)
         ret = self.model(*self._inputs(batch), bn_momentum=self.bnm_sched(epoch_f),
                          generator=self.generator, noise=noise)
-        sparse, dense = adapointr_loss(ret, batch["gt"], self.factor)
+        sparse, dense = self.model.loss(ret, batch["gt"], epoch_f)
         total = sparse + dense
         total.backward()
         for name, p in self.model.named_parameters():
             if p.grad is not None and any(m in name for m in ZERO_GRAD_PARAM_MARKERS):
                 raise RuntimeError(f"{name} got a gradient: it must stay out of the graph")
         # torch's rule is the reference's: coef = min(max_norm / (norm + 1e-6), 1)
-        grad_norm = torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.grad_clip)
+        trainable = [p for p in self.model.parameters() if p.requires_grad]
+        grad_norm = torch.nn.utils.clip_grad_norm_(trainable, self.grad_clip)
         self.optimizer.step()
         self.step += 1
         return {"sparse_loss": sparse.detach(), "dense_loss": dense.detach(),
@@ -118,15 +117,17 @@ class Runner:
         return self._eval_core(self._to_device(batch))[0].double().cpu().numpy()
 
     @torch.inference_mode()
-    def test_step(self, batch: dict) -> np.ndarray:
+    def test_step(self, batch: dict, require_emd: bool = True) -> np.ndarray:
         """(B, 9) rows: EVAL_KEYS, then the reference's Metrics row. At
         batch size 1 its CDs drop zero-padded rows (the reference's
         ``ignore_zeros`` engages only there), which takes the masked
-        nearest-neighbour path; the F-Score is the eval suite's."""
+        nearest-neighbour path; the F-Score is the eval suite's; EMD x1000
+        is the auction's (eps 0.005, 100 iterations), 0 unless
+        ``require_emd``."""
         batch = self._to_device(batch)
         rows, (_, dense) = self._eval_core(batch)
-        vals = compute_metrics(dense, batch["gt"], ignore_zeros=dense.shape[0] == 1,
-                               f_value=rows[:, 4].mean())
+        vals = compute_metrics(dense, batch["gt"], require_emd=require_emd,
+                               ignore_zeros=dense.shape[0] == 1, f_value=rows[:, 4].mean())
         protocol = torch.stack([v.to(rows.dtype) for v in vals]).expand(rows.shape[0], -1)
         return torch.cat([rows, protocol], dim=1).double().cpu().numpy()
 
@@ -274,17 +275,17 @@ def _load_shapenet_dict() -> dict:
 
 def test(runner: Runner, test_loader, args, config, logger=None) -> dict:
     """The PCN test protocol: per-taxonomy and overall F-Score, CD-L1,
-    CD-L2 (x1000). EMD is not ported: the run is as with ``--no_emd``."""
+    CD-L2 and EMD (x1000); EMD reads 0 with ``--no_emd``."""
     name = config.dataset.test.get("NAME", "")
     if name == "KITTI" or ("ShapeNet" in name and "PCN" not in name):
         raise NotImplementedError(
             f"test protocol of {name} is not ported (ROADMAP Queue 1: multi-GPU and protocols)"
         )
-    note = "requested but not ported (ROADMAP Queue 1: EMD)" if getattr(args, "emd", True) else "off"
-    print_log(f"[TEST] PCN protocol; EMD {note}: the run is as with --no_emd, EMDistance reads 0", logger)
+    require_emd = bool(getattr(args, "emd", True))
+    print_log(f"[TEST] PCN protocol; EMD {'on' if require_emd else 'off (--no_emd)'}", logger)
     category_metrics: dict[str, AverageMeter] = {}
     for taxonomy_ids, _, batch in test_loader:
-        rows = runner.test_step(batch)
+        rows = runner.test_step(batch, require_emd=require_emd)
         _accumulate(category_metrics, taxonomy_ids, rows[:, 5:])
     overall = _overall(category_metrics)
 

@@ -3,14 +3,15 @@
 Counterpart of ``imgadapointr_tpu/utils/metrics.py``. All three come
 from one bidirectional nearest-neighbour pass (:func:`ops.nn_distance_eval`);
 :func:`compute_metrics` is the test protocol's table row, whose CDs can
-drop zero-padded rows. EMD waits (ROADMAP Queue 1: EMD) and reads 0.
+drop zero-padded rows, with the auction EMD (:func:`ops.emd_distance_metric`)
+where it is asked for.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import nn_distance, nn_distance_eval
+from ..ops import emd_distance_metric, nn_distance, nn_distance_eval
 from ..ops.chamfer import _masked_mean, _sqrt_floor
 
 METRIC_NAMES = ["F-Score", "CDL1", "CDL2", "EMDistance"]
@@ -60,23 +61,25 @@ def eval_metric_suite(pred: torch.Tensor, gt: torch.Tensor, th: float = 0.01,
     return f, cd_l1, cd_l2
 
 
-def compute_metrics(pred: torch.Tensor, gt: torch.Tensor, ignore_zeros: bool = False,
-                    f_value: torch.Tensor | None = None):
-    """[F-Score, CDL1 x1000, CDL2 x1000, EMD] of the test protocol
-    (``imgadapointr_tpu/utils/metrics.py:99-144``).
+def compute_metrics(pred: torch.Tensor, gt: torch.Tensor, require_emd: bool = False,
+                    ignore_zeros: bool = False, f_value: torch.Tensor | None = None):
+    """[F-Score, CDL1 x1000, CDL2 x1000, EMD x1000] of the test protocol
+    (``imgadapointr_tpu/utils/metrics.py:99-144``); EMD is 0 unless
+    ``require_emd``.
 
     ``ignore_zeros`` drops zero-padded rows of either cloud from the CD
     means and from the neighbour candidates, as the reference's eval
-    objects do at batch size 1; the F-Score never strips zeros. ``f_value``
-    is a precomputed F-Score of (pred, gt) from :func:`eval_metric_suite`,
-    which saves a second unmasked pass. EMD is not ported and reads 0."""
+    objects do at batch size 1; the F-Score and EMD never strip zeros.
+    ``f_value`` is a precomputed F-Score of (pred, gt) from
+    :func:`eval_metric_suite`, which saves a second unmasked pass."""
     w_pred = _nonzero_mask(pred) if ignore_zeros else None
     w_gt = _nonzero_mask(gt) if ignore_zeros else None
     d1, d2, _, _ = nn_distance(pred.detach(), gt.detach(), w_pred, w_gt)
     cd_l1 = (_masked_mean(_sqrt_floor(d1), w_pred) + _masked_mean(_sqrt_floor(d2), w_gt)) / 2.0
     cd_l2 = _masked_mean(d1, w_pred) + _masked_mean(d2, w_gt)
     f = f_score(pred, gt) if f_value is None else f_value
-    return [f, cd_l1 * 1000.0, cd_l2 * 1000.0, torch.zeros_like(cd_l1)]
+    emd = emd_distance_metric(pred, gt) * 1000.0 if require_emd else torch.zeros_like(cd_l1)
+    return [f, cd_l1 * 1000.0, cd_l2 * 1000.0, emd.to(cd_l1.dtype)]
 
 
 class Metrics:

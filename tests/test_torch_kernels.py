@@ -1,4 +1,4 @@
-"""The port's seven CUDA kernels against their plain PyTorch versions.
+"""The port's ten CUDA kernels against their plain PyTorch versions.
 
 These need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 ``imgadapointr_tpu_torch/csrc`` at first use); elsewhere each test skips
@@ -7,14 +7,15 @@ machine with a card it runs on its own:
 
     python -m pytest tests/test_torch_kernels.py -q --noconftest
 
-Tolerance: none, but for the scatter-add and the weighted gather-sum.
-Every other kernel repeats its plain version's arithmetic (diff-form
-distances without FMA contraction, first index on ties), so indices are
-equal and values bit-equal. The scatter-add sums with float32 atomics in no
-fixed order: it is held to 1e-5 of each element's sum of absolute
-contributions, and to bit-equality where every row receives one
-contribution. The weighted gather-sum adds with fused multiply-adds in
-ascending order, the plain version with PyTorch's reduction: 1e-5 of each
+Tolerance: none, but for the scatter-add and the weighted gather-sum with
+its two backward kernels. Every other kernel repeats its plain version's
+arithmetic (diff-form distances without FMA contraction, first index on
+ties), so indices are equal and values bit-equal. The scatter-add and the
+gather-sum's ``dfeats`` sum with float32 atomics in no fixed order: they
+are held to 1e-5 of each element's sum of absolute contributions, and the
+scatter-add to bit-equality where every row receives one contribution. The
+weighted gather-sum and its ``dweights`` add with fused multiply-adds in a
+fixed order, the plain versions with PyTorch's reductions: 1e-5 of each
 element's sum of absolute terms.
 """
 
@@ -233,15 +234,74 @@ def test_weighted_gather_sum_kernel_agrees_with_plain(dev, B, S, K, M, C):
 
 
 def test_weighted_gather_sum_kernel_refuses_what_it_cannot_take(dev):
+    """The backward on the card: the two backward kernels launch once each
+    and agree with the same Function on the CPU; then what the wrappers
+    refuse."""
+    g = torch.Generator().manual_seed(3)
+    w, feats = torch.rand(2, 64, 63, generator=g), torch.randn(2, 64, 64, generator=g)
+    idx = torch.randint(-8, 72, (2, 64, 63), generator=g)
+    cot = torch.randn(2, 64, 64, generator=g)
+    grads = {}
+    for device in (dev, torch.device("cpu")):
+        tw, tf = w.to(device).requires_grad_(), feats.to(device).requires_grad_()
+        out = ops.weighted_gather_sum(tw, idx.to(device), tf)
+        before = _build.launches()
+        # a non-contiguous cotangent, as autograd may hand one to the backward
+        out.backward(cot.to(device).transpose(1, 2).contiguous().transpose(1, 2))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            for name in ("weighted_gather_sum_dfeats", "weighted_gather_sum_dweights"):
+                assert _build.launches()[name] == before[name] + 1
+        grads[device.type] = (tw.grad.cpu(), tf.grad.cpu())
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     w = torch.ones(1, 4, 3, device=dev)
     idx = torch.zeros(1, 4, 3, dtype=torch.int64, device=dev)
     feats = torch.ones(1, 5, 8, device=dev)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.weighted_gather_sum(w, idx, feats.requires_grad_())
-    feats = feats.detach()
     with pytest.raises(TypeError):
         ops.weighted_gather_sum(w.double(), idx, feats.double())
     with pytest.raises(ValueError):
         ops.weighted_gather_sum(w, idx.cpu(), feats)
     with pytest.raises(ValueError):
         ops.weighted_gather_sum(w, idx, feats.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.parametrize("B,S,K,M,C", [(16, 512, 63, 512, 64), (2, 100, 7, 50, 3), (3, 77, 40, 130, 12),
+                                       (1, 64, 70, 64, 1000), (2, 33, 5, 20, 1100), (2, 9, 1, 9, 130)])
+def test_weighted_gather_sum_backward_kernels_agree_with_plain(dev, B, S, K, M, C):
+    """dfeats (float32 atomics: 1e-5 of each element's absolute sum) and
+    dweights (a fixed shuffle order: 1e-5 of each element's absolute sum,
+    and the same bits in two runs) at the superset's GDANet shape and odd
+    widths; a third of the indices out of range."""
+    g = torch.Generator().manual_seed(S + K + C + 1)
+    w = _cloud(g, B, S, K, device=dev)
+    idx = torch.randint(-M // 2, M + M // 2, (B, S, K), generator=g).to(dev)
+    feats, cot = _cloud(g, B, M, C, device=dev), _cloud(g, B, S, C, device=dev)
+    df = _launched("weighted_gather_sum_dfeats", lambda: ops.weighted_gather_sum_dfeats(w, idx, cot, M))
+    room = 1e-5 * ops.weighted_gather_sum_dfeats_plain(w.abs(), idx, cot.abs(), M)
+    assert bool(((df - ops.weighted_gather_sum_dfeats_plain(w, idx, cot, M)).abs() <= room).all())
+    dw = _launched("weighted_gather_sum_dweights", lambda: ops.weighted_gather_sum_dweights(idx, cot, feats))
+    room = 1e-5 * ops.weighted_gather_sum_dweights_plain(idx, cot.abs(), feats.abs())
+    assert bool(((dw - ops.weighted_gather_sum_dweights_plain(idx, cot, feats)).abs() <= room).all())
+    assert torch.equal(dw, ops.weighted_gather_sum_dweights(idx, cot, feats))
+    invalid = (idx < 0) | (idx >= M)
+    assert int(dw[invalid].count_nonzero()) == 0
+
+
+@pytest.mark.parametrize("B,N,M", [(1, 16384, 16384), (2, 300, 400), (1, 128, 1500), (2, 1000, 1000)])
+def test_auction_top2_kernel_equals_plain(dev, B, N, M):
+    """Values bit-equal and indices equal on the live rows, with every row
+    live and with a count per cloud."""
+    g = torch.Generator().manual_seed(N + M)
+    x, y = _cloud(g, B, N, 3, device=dev), _cloud(g, B, M, 3, device=dev)
+    price = (torch.rand(B, M, generator=g) * 0.1).to(dev)
+    want = ops.auction_top2_plain(x, y, price)
+    got = _launched("auction_top2", lambda: ops.auction_top2(x, y, price))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    cnt = torch.tensor([N // 3, N][:B], device=dev)
+    got = ops.auction_top2(x, y, price, cnt)
+    for b in range(B):
+        c = int(cnt[b])
+        for a, w_ in zip(got, want):
+            assert torch.equal(a[b, :c], w_[b, :c])

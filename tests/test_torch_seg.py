@@ -127,6 +127,18 @@ def superset():
     return build_pair(SUPERSET, seed=5)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the test: the test workers share the
+    machine's cores, and loops of small tensor ops (a train step at the
+    tiny size, the EMD auction) slow down many times over when every
+    worker's PyTorch spreads each op over all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ----------------------------------------------------- weighted gather-sum
 
 
@@ -346,11 +358,12 @@ def test_state_dict_from_flax_carries_every_leaf(name):
 # ------------------------------------------------------------- the runner
 
 
-def test_runner_validates_and_tests_the_superset_on_the_cpu(tmp_path, monkeypatch, capfd):
-    """validate through the Runner; ``test_net`` (the PCN protocol at batch
+def test_runner_validates_and_tests_the_superset_on_the_cpu(tmp_path, monkeypatch, capfd, one_torch_thread):
+    """validate through the Runner; one ``train_step`` of the superset
+    (finite losses, GDANet untouched and without a gradient, every other
+    trainable parameter moved); ``test_net`` (the PCN protocol at batch
     size 1 on synthetic images and class one-hots) from a checkpoint, with
-    ``--gdanet_w``; ``train_step`` refusing: these models' training is not
-    ported."""
+    ``--gdanet_w``."""
     import pathlib
     import types
 
@@ -370,8 +383,14 @@ def test_runner_validates_and_tests_the_superset_on_the_cpu(tmp_path, monkeypatc
 
     runner.make_train_state(1)
     batch = next(iter(port_runner.dataset_builder(args, config.dataset.train)[1]))[2]
-    with pytest.raises(NotImplementedError, match="superset training slice"):
-        runner.train_step(batch, 0.0)
+    before = {n: p.detach().clone() for n, p in runner.model.named_parameters()}
+    out = runner.train_step(batch, 0.0)
+    assert all(np.isfinite(float(v)) for v in out.values()) and float(out["total_loss"]) > 0
+    for name, p in runner.model.named_parameters():
+        if "segmentator" in name:
+            assert p.grad is None and not p.requires_grad and torch.equal(p, before[name]), name
+        elif p.grad is not None:
+            assert not torch.equal(p, before[name]), name
 
     torch.save({"base_model": runner.model.state_dict()}, tmp_path / "superset.pth")
     torch.save(runner.model.base_model.segmentator.state_dict(), tmp_path / "gdanet.pth")

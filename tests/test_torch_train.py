@@ -46,6 +46,7 @@ from imgadapointr_tpu_torch.tools.runner import Runner
 from imgadapointr_tpu_torch.utils.checkpoint import load_checkpoint
 from imgadapointr_tpu_torch.utils.config import cfg_from_yaml_file
 from parity.param_source import init_variables
+from test_torch_seg import one_torch_thread  # noqa: F401  (a fixture)
 
 TINY = "cfgs/PCN_models/AdaPoinTr-tiny.yaml"
 B, N_IN = 2, 256
@@ -288,7 +289,7 @@ def _main(*extra):
     ])
 
 
-def test_main_trains_resumes_and_tests_on_the_cpu(run_dir, capfd):
+def test_main_trains_resumes_and_tests_on_the_cpu(run_dir, capfd, one_torch_thread):
     """2 epochs of 2 steps with validation, then ``--resume`` (nothing left
     to train: the parameters are the checkpoint's, bit for bit), then
     ``--test`` on the best checkpoint."""
@@ -316,10 +317,13 @@ def test_main_trains_resumes_and_tests_on_the_cpu(run_dir, capfd):
 
     scores = _main("--test", "--ckpts", str(exp / "ckpt-best.pth"))
     table = capfd.readouterr().err
-    assert "TEST RESULTS" in table and "Overall" in table and "as with --no_emd" in table
+    assert "TEST RESULTS" in table and "Overall" in table and "EMD on" in table
     assert set(scores) == {"F-Score", "CDL1", "CDL2", "EMDistance"}
     assert 0.0 <= scores["F-Score"] <= 1.0 and scores["CDL1"] > 0 and scores["CDL2"] > 0
-    assert scores["EMDistance"] == 0.0
+    assert scores["EMDistance"] > 0.0
+    no_emd = _main("--test", "--ckpts", str(exp / "ckpt-best.pth"), "--no_emd")
+    assert "EMD off (--no_emd)" in capfd.readouterr().err
+    assert no_emd["EMDistance"] == 0.0 and no_emd["CDL1"] == scores["CDL1"]
     with pytest.raises(ValueError, match="--ckpts"):
         _main("--test")
 
