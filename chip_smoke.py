@@ -62,15 +62,34 @@ Phases; any failure exits non-zero and prints no result line:
    gather-sum and its two backward kernels), GDANet frozen and every other
    trainable parameter moved, one profiled step and the peak memory; then
    one step at batch 2 against the CPU (losses 1e-4 relative, gradient
-   norm ``SUPERSET_GRAD_NORM_TOL``, GDANet's differing selections counted).
+   norm ``SUPERSET_GRAD_NORM_TOL``, GDANet's differing selections counted);
+7. ``AdaPoinTr-deform`` (:func:`deform_config`: the flagship with
+   deformable local attention, every token in every call form) at full
+   width: ``REQUESTS`` requests of ``B`` with metrics and their launch table
+   (8 fused 3-NN interpolations a request), a profiled request, one request
+   at batch 2 against the CPU (clouds as sets); 1 warm-up and
+   ``TRAIN_STEPS`` steps of ``Runner.train_step`` at batch 16 with their
+   table (8 fused 3-NN calls and 8 of their VJP, ``dfeats``), the offset
+   nets and ``proj_v_off`` without gradient and untouched, every other
+   trainable parameter moved, a profiled step, and one step at batch 2
+   against the CPU (loss 1e-4, gradient norm 1e-3, relative).
 
-Phase 2 also holds the gather-sum's two backward kernels (at the superset
-train step's GDANet shapes and the tiny config's, 1e-5 of each element's
-absolute sum) and the auction top-2 (16384 x 16384, every row live and a
-small count, values bit-equal and indices equal) against their plain
-versions. Phase 4's test protocol runs the auction EMD at 16384 x 16384 on
-each cloud: its time per cloud, iterations, top-2 launches, and one cloud's
-assignment through the kernel equal to the plain path's.
+Phase 2 also holds the gather-sum's two backward kernels (``dfeats`` at
+K = 3 on the deformable train step's 3-NN shapes, where it is the
+interpolation's VJP, and both at the superset train step's GDANet shapes
+and the tiny config's; 1e-5 of each element's absolute sum), the auction
+top-2 (16384 x 16384, every row live and a small count, values bit-equal
+and indices equal), the fused 3-NN interpolation (every deformable call's
+shape at serving and train batch, and probes; indices equal, values
+bit-equal) and the matmul-form argmin of the opt-in eval chamfer (8 x 16384
+x 16384 and a ragged shape; indices equal) against their plain versions.
+Phase 4's test protocol runs the auction EMD at 16384 x 16384 on each
+cloud: its time per cloud, iterations, top-2 launches, and one cloud's
+assignment through the kernel equal to the plain path's. Phase 4 then runs
+``validate`` and ``test`` again with ``IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER``
+set for those calls only: the matmul-form kernel's launches replace the
+exact kernel's in the eval suite, CD-L1 and CD-L2 x1000 stay within 1e-3 of
+the exact run's, and the test table (exact F-score) is the exact run's.
 
 Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.
@@ -80,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -96,6 +116,7 @@ from imgadapointr_tpu_torch.datasets import SyntheticPCN
 from imgadapointr_tpu_torch.main import swap_synthetic
 from imgadapointr_tpu_torch.models import build_model
 from imgadapointr_tpu_torch.models import gdanet as port_gdanet
+from imgadapointr_tpu_torch.nn.blocks import _parse_style
 from imgadapointr_tpu_torch.ops import _build
 from imgadapointr_tpu_torch.tools import runner as port_runner
 from imgadapointr_tpu_torch.tools.builder import dataset_builder
@@ -114,10 +135,13 @@ B_TRAIN = 16  # the config's total_bs
 TRAIN_STEPS = 5
 DENOISE = 64  # denoise queries of a train step
 EVAL_CLOUDS = 2  # clouds validated, and clouds tested, at batch size 1
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
-# float32 outside the tensor cores (the kernels do no matrix products).
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s,
+# float32 outside the tensor cores, and dense bf16 products with float32
+# sums in the tensor cores (the rate of the matmul-form argmin's cross term,
+# whatever unit the kernel computes it on).
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_BF16_TC = 989e12
 # operations per candidate pair: 3 subtracts, 3 multiplies, 2 adds, and
 # one compare per direction the pair is ranked in
 OPS_PAIR_ONE_WAY = 9
@@ -133,6 +157,22 @@ EMD_EPS, EMD_ITERATIONS = 0.005, 100  # the test protocol's auction
 # gradient that flows back through it, so the gradient norm is held to 10x
 # the flagship's 1e-3; the losses keep the flagship's 1e-4.
 SUPERSET_GRAD_NORM_TOL = 1e-2
+
+# the matmul-form distance per pair: the cross term is a bf16 product of
+# inner length 9 with float32 sums (3 dot products of 3, 9 multiplies and 8
+# adds), a tensor-core operation; then a multiply, a subtract and an add,
+# and one compare per direction, in float32
+OPS_PAIR_MXU_TC = 17
+OPS_PAIR_MXU_F32 = 5
+# the fused 3-NN's weighted sum per output element: 3 multiplies, 2 adds
+OPS_INTERP_ELEM = 5
+# the deformable config's block lists (cfgs/PCN_models/AdaPoinTr.yaml otherwise)
+DEFORM_LISTS = {
+    "encoder": ["attn-rw_deform", "attn-deform", "attn-deform_graph", "attn", "attn", "attn"],
+    "self": ["attn-deform", "attn-deform_graph", "attn-rw_deform"] + ["attn"] * 5,
+    "cross": ["attn-deform", "attn-deform_graph"] + ["attn"] * 6,
+}
+MXU_FLAG = "IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER"
 
 SOURCES = {
     "nn_bidir_argmin": ("imgadapointr_tpu_torch/csrc/nn_bidir_argmin.cu",
@@ -155,21 +195,44 @@ SOURCES = {
                                      "imgadapointr_tpu/ops/pallas/gather_sum.py:149"),
     "auction_top2": ("imgadapointr_tpu_torch/csrc/auction_top2.cu",
                      "imgadapointr_tpu/ops/pallas/auction.py:161"),
+    "three_nn_interpolate": ("imgadapointr_tpu_torch/csrc/three_nn_interpolate.cu",
+                             "imgadapointr_tpu/ops/pallas/nn_distance.py:451"),
+    "nn_bidir_mxu": ("imgadapointr_tpu_torch/csrc/nn_bidir_mxu.cu",
+                     "imgadapointr_tpu/ops/pallas/nn_distance.py:318"),
 }
 # Kernels that no driven path launches, and why; phase 2 holds them against
 # their plain versions all the same
 NOT_ON_A_PATH = {
-    name: "the weighted gather-sum's VJP: the GDM's neighbour sum feeds only a top-k ranking, so no "
-          "train step's cotangent reaches it (the JAX package's gradient never calls its Pallas VJP either)"
-    for name in ("weighted_gather_sum_dfeats", "weighted_gather_sum_dweights")
+    "weighted_gather_sum_dweights":
+        "the weighted gather-sum's weight gradient: the GDM's neighbour sum feeds only a top-k ranking, "
+        "so no train step's cotangent reaches it (the JAX package's gradient never calls its Pallas VJP "
+        "either); the 3-NN interpolation's VJP needs only dfeats",
 }
-PORTED_KERNEL_NAMES = ("nn_bidir", "knn_kernel", "fps_kernel", "gather_rows",
+PORTED_KERNEL_NAMES = ("nn_bidir_kernel", "knn_kernel", "fps_kernel", "gather_rows",
                        "scatter_add_rows", "nn_one_direction", "weighted_gather_sum",
-                       "dfeats_kernel", "dweights_kernel", "auction_top2")
+                       "dfeats_kernel", "dweights_kernel", "auction_top2", "three_nn_interp_kernel",
+                       "nn_bidir_mxu_kernel")
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def deform_config():
+    """``AdaPoinTr-deform``: ``cfgs/PCN_models/AdaPoinTr.yaml`` with its three
+    block lists swapped for ``DEFORM_LISTS``, every other value the file's
+    (embed 384, k 8, n_group 2, 6 heads, 512 queries, 2048 -> 512 + 16384,
+    batch 16). Every deformable token in every call form: each in the
+    encoder (shared index), 'deform' and 'deform_graph' in the decoder's
+    self half (two-phase search in training), 'rw_deform' there (its own
+    search over all tokens in training), 'deform' and 'deform_graph' as
+    cross-attention."""
+    config = cfg_from_yaml_file(CONFIG)
+    enc, dec = config.model.encoder_config, config.model.decoder_config
+    enc.block_style_list = list(DEFORM_LISTS["encoder"])
+    dec.self_attn_block_style_list = list(DEFORM_LISTS["self"])
+    dec.cross_attn_block_style_list = list(DEFORM_LISTS["cross"])
+    return config
 
 
 def gdanet_calls(n: int) -> dict:
@@ -184,16 +247,61 @@ def gdanet_calls(n: int) -> dict:
             "weighted_gather_sum": [(n, k_gdm - 1, n, 64)] * 2}
 
 
+def _tokens(cfg):
+    """(encoder, decoder self, decoder cross) local tokens of the model
+    config, None for a block without one."""
+    enc, dec = cfg.encoder_config, cfg.decoder_config
+    return tuple([_parse_style(s)[1] for s in styles] for styles in (
+        enc.block_style_list, dec.self_attn_block_style_list, dec.cross_attn_block_style_list))
+
+
+def _local_calls(token, C, g, n_q, n_v, k, own_knn=False):
+    """One local attention block's calls over n_q queries, each with k
+    neighbours among n_v values: (knn, gathers whose result feeds only the
+    detached shifted positions (the offset features and positions of a
+    deformable block: no backward reaches them), gathers whose backward is
+    a scatter, fused 3-NN calls). A 3-NN call is (groups, queries, known
+    points, channels); its table is the values, so each adds a
+    ``weighted_gather_sum_dfeats`` in a backward."""
+    S = n_q * k
+    knn = [(k, n_q, n_v)] if own_knn else []
+    if token == "graph":
+        return knn, [], [(n_v, C, S)], []
+    offsets = [(n_v, C, S), (n_v, 3, S)]
+    if token == "rw_deform":  # and the region's queries
+        return knn, offsets, [(n_q, C, S)], [(g, S, n_v, C // g)]
+    groups = 1 if token == "deform_graph" else g
+    return knn, offsets, [], [(groups, S, n_v, C // groups)]
+
+
+def _two_phase_calls(token, C, g, nq, L, k):
+    """:func:`_local_calls` of a denoise-mode self-attention block ('graph',
+    'deform', 'deform_graph'): the real queries search among the nq real
+    tokens, the L denoise queries among all Q = nq + L, and each search
+    gathers its rows of every table (the values; the offset features and
+    positions for a deformable block)."""
+    Q = nq + L
+    knn = [(k, nq, nq), (k, L, Q)]
+    rows = [(nq, C, nq * k), (Q, C, L * k)]
+    if token == "graph":
+        return knn, [], rows, []
+    groups = 1 if token == "deform_graph" else g
+    return knn, rows + [(nq, 3, nq * k), (Q, 3, L * k)], [], [(groups, Q * k, Q, C // groups)]
+
+
 def request_calls(cfg) -> dict:
     """Each kernel's calls in one eval request plus its metrics, per batch
     element count, from the model config: knn (k, S, M), fps (N, npoint),
     gather_rows (M, C, S), nn_bidir_argmin (N, M), weighted_gather_sum
-    (S, K, M, C). A segmentation model adds one GDANet pass: on the ranked
-    queries (the superset) or on the encoder centres (SegEncAdaPoinTr)."""
+    (S, K, M, C), three_nn_interpolate (groups, S, M, C; the batch times
+    the groups is the kernel's). A segmentation model adds one GDANet pass:
+    on the ranked queries (the superset) or on the encoder centres
+    (SegEncAdaPoinTr)."""
     n1, n2 = (int(n) for n in cfg.center_num)
     nq, n_fine = int(cfg.num_query), int(cfg.num_points)
     enc, dec = cfg.encoder_config, cfg.decoder_config
     C, ke, kd, kg = int(enc.embed_dim), int(enc.k), int(dec.k), 16
+    g = int(enc.get("n_group", 2))
     n_cand = nq + nq // 2  # coarse_pred queries + FPS seeds, before ranking
     N = N_PARTIAL
     knn = [(kg, N, N), (kg, n1, N), (kg, n1, n1), (kg, n2, n1),  # grouper
@@ -205,12 +313,17 @@ def request_calls(cfg) -> dict:
         (n1, 64, n1 * kg), (n1, 3, n2), (n1, 64, n2), (n1, 64, n2 * kg),  # 3-4
         (N, 3, nq // 2), (n_cand, 3, nq),  # query seeds, ranking
     ]
-    gather += [(n2, C, n2 * ke)] * sum("graph" in s for s in enc.block_style_list)
-    gather += [(nq, C, nq * kd)] * sum("graph" in s for s in dec.self_attn_block_style_list)
-    gather += [(n2, C, nq * kd)] * sum("graph" in s for s in dec.cross_attn_block_style_list)
+    interp = []
+    enc_t, self_t, cross_t = _tokens(cfg)
+    for tokens, n_q, n_v, k in ((enc_t, n2, n2, ke), (self_t, nq, nq, kd), (cross_t, nq, n2, kd)):
+        for t in filter(None, tokens):  # every index is given by the stack
+            _, offsets, rows, it = _local_calls(t, C, g, n_q, n_v, k)
+            gather += offsets + rows
+            interp += it
     gather += [(n_fine, 3, n_fine)] * 2  # metric residuals, both directions
     calls = {"knn": knn, "fps": fps, "gather_rows": gather,
-             "nn_bidir_argmin": [(n_fine, n_fine)], "weighted_gather_sum": []}
+             "nn_bidir_argmin": [(n_fine, n_fine)], "weighted_gather_sum": [],
+             "three_nn_interpolate": interp}
     n_seg = {"ImgEncSegDecAdaPoinTrVariableLoss": nq, "SegEncAdaPoinTr": n2}.get(cfg.NAME)
     if n_seg:
         for name, c in gdanet_calls(n_seg).items():
@@ -224,36 +337,45 @@ def train_step_calls(cfg) -> dict:
     model config. scatter_add_rows (rows, C, S): the chamfer cross term of
     each predicted cloud (the ground truth needs no gradient, so its cross
     term is not computed) and the backward of every gather whose table
-    needs a gradient."""
+    needs a gradient; weighted_gather_sum_dfeats (groups, S, M, C): the
+    backward of every fused 3-NN call. In the decoder's self half a
+    'rw_deform' block searches its own neighbours over all Q tokens, the
+    others the two-phase way."""
     n1, n2 = (int(n) for n in cfg.center_num)
     nq, n_fine = int(cfg.num_query), int(cfg.num_points)
     enc, dec = cfg.encoder_config, cfg.decoder_config
     C, ke, kd, kg = int(enc.embed_dim), int(enc.k), int(dec.k), 16
+    g = int(enc.get("n_group", 2))
     n_cand, L, Q = nq + nq // 2, DENOISE, nq + DENOISE
     factor = n_fine // nq
     N = N_PARTIAL
-    n_enc = sum("graph" in s for s in enc.block_style_list)
-    n_self = sum("graph" in s for s in dec.self_attn_block_style_list)
-    n_cross = sum("graph" in s for s in dec.cross_attn_block_style_list)
     knn = [(kg, N, N), (kg, n1, N), (kg, n1, n1), (kg, n2, n1), (ke, n2, n2), (kd, Q, n2)]
-    knn += [(kd, nq, nq), (kd, L, Q)] * n_self  # two-phase search, per graph block
-    knn += [(factor, L, n_fine)]  # denoise targets
-    fps = [(N, n1), (n1, n2), (N, nq // 2), (N, L)]
     # gathers whose table needs a gradient: their backward is one scatter each
     grad_gathers = [(N, 32, n1), (N, 32, n1 * kg), (n1, 64, n1 * kg), (n1, 64, n2),
                     (n1, 64, n2 * kg), (n_cand, 3, nq)]
-    grad_gathers += [(n2, C, n2 * ke)] * n_enc
-    grad_gathers += [(nq, C, nq * kd), (Q, C, L * kd)] * n_self
-    grad_gathers += [(n2, C, Q * kd)] * n_cross
+    other_gathers, interp = [], []
+    enc_t, self_t, cross_t = _tokens(cfg)
+    blocks = [_local_calls(t, C, g, n2, n2, ke) for t in enc_t if t]
+    blocks += [_local_calls(t, C, g, Q, Q, kd, own_knn=True) if t == "rw_deform"
+               else _two_phase_calls(t, C, g, nq, L, kd) for t in self_t if t]
+    blocks += [_local_calls(t, C, g, Q, n2, kd) for t in cross_t if t]
+    for kn, offsets, rows, it in blocks:
+        knn += kn
+        other_gathers += offsets
+        grad_gathers += rows
+        interp += it
+    knn += [(factor, L, n_fine)]  # denoise targets
+    fps = [(N, n1), (n1, n2), (N, nq // 2), (N, L)]
     chamfer = [(L * factor, L * factor), (nq, n_fine), (n_fine, n_fine)]  # (pred, target)
     gather = [(N, 3, N * kg), (N, 3, n1), (n1, 3, n2),  # grouper coordinates
               (N, 3, nq // 2), (N, 3, L), (n_fine, 3, L * factor)]  # seeds, denoise targets
-    gather += grad_gathers
+    gather += grad_gathers + other_gathers
     for n_pred, n_gt in chamfer:  # residuals of both directions
         gather += [(n_gt, 3, n_pred), (n_pred, 3, n_gt)]
     scatter = [(n_pred, 3, n_gt) for n_pred, n_gt in chamfer] + grad_gathers
     return {"knn": knn, "fps": fps, "gather_rows": gather, "nn_bidir_argmin": chamfer,
-            "scatter_add_rows": scatter, "nn_one_direction": [], "weighted_gather_sum": []}
+            "scatter_add_rows": scatter, "nn_one_direction": [], "weighted_gather_sum": [],
+            "three_nn_interpolate": interp, "weighted_gather_sum_dfeats": list(interp)}
 
 
 def superset_train_calls(cfg) -> dict:
@@ -275,21 +397,29 @@ def superset_train_calls(cfg) -> dict:
     return calls
 
 
-def eval_calls(cfg, protocol: str) -> dict:
+def eval_calls(cfg, protocol: str, mxu: bool = False) -> dict:
     """Each kernel's calls for one cloud of ``validate`` or ``test``: one
     eval request, the coarse cloud's chamfer against the ground truth and,
     in ``test`` at batch size 1, the masked chamfer of the fine cloud (two
-    one-direction passes and their residual gathers) and the auction EMD,
-    whose top-2 launches (one per bidding iteration, one more for the
-    greedy fallback) depend on the data: ``None``, at least one."""
+    one-direction passes and their residual gathers), the table's F-score
+    by one more exact pass, and the auction EMD, whose top-2 launches (one
+    per bidding iteration, one more for the greedy fallback) depend on the
+    data: ``None``, at least one. With ``mxu``
+    (``IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER`` set) the eval suite's pass
+    over the fine cloud selects by the matmul-form kernel instead of the
+    exact one (the same two residual gathers recompute its distances)."""
     nq, n_fine = int(cfg.num_query), int(cfg.num_points)
     calls = {k: list(v) for k, v in request_calls(cfg).items()}
+    if mxu:
+        calls["nn_bidir_mxu"] = calls["nn_bidir_argmin"]
+        calls["nn_bidir_argmin"] = []
     calls["nn_bidir_argmin"].append((nq, n_fine))
     calls["gather_rows"] += [(n_fine, 3, nq), (nq, 3, n_fine)]
     calls.update(scatter_add_rows=[], nn_one_direction=[])
     if protocol == "test":
         calls["nn_one_direction"] = [(n_fine, n_fine)] * 2
-        calls["gather_rows"] += [(n_fine, 3, n_fine)] * 2
+        calls["gather_rows"] += [(n_fine, 3, n_fine)] * 4
+        calls["nn_bidir_argmin"].append((n_fine, n_fine))
         calls["auction_top2"] = None
     return calls
 
@@ -568,12 +698,17 @@ def check_weighted_gather_sum(calls, extra, g, dev):
     return err, t, sum(2 * B * S * K * C for S, K, M, C in calls), nbytes
 
 
-def gather_sum_backward_inputs(cases, g, dev) -> list:
+def gather_sum_backward_inputs(cases, g, dev, distinct: bool = True) -> list:
     """(w, idx, feats, cotangent) for each (batch, (S, K, M, C)) case, the
-    indices distinct per row as a top-k gives them."""
+    indices distinct per row as a top-k gives them (or, without
+    ``distinct``, drawn independently: the 3-NN shapes' rows are too many
+    to sort)."""
     out = []
     for b, (S, K, M, C) in cases:
-        idx = torch.rand(b, S, M, generator=g).argsort(dim=-1)[..., :K].contiguous().to(dev)
+        if distinct:
+            idx = torch.rand(b, S, M, generator=g).argsort(dim=-1)[..., :K].contiguous().to(dev)
+        else:
+            idx = torch.randint(0, M, (b, S, K), generator=g).to(dev)
         w = torch.rand(b, S, K, generator=g).to(dev)
         feats, cot = torch.randn(b, M, C, generator=g).to(dev), torch.randn(b, S, C, generator=g).to(dev)
         out.append((w, idx, feats, cot))
@@ -581,12 +716,15 @@ def gather_sum_backward_inputs(cases, g, dev) -> list:
 
 
 def check_dfeats(calls, extra, g, dev):
-    """weighted_gather_sum_dfeats at the superset train step's GDANet
-    shapes (batch B_TRAIN, timed) and the tiny config's, held to 1e-5 of
-    each element's sum of absolute terms (float32 atomics); out-of-range
-    indices add nothing. Library: ``index_add_`` over the materialised
-    (B, S, K, C) terms ``w * g``."""
-    inputs = gather_sum_backward_inputs([(B_TRAIN, c) for c in calls] + list(extra), g, dev)
+    """weighted_gather_sum_dfeats at K = 3 on the deformable train step's
+    3-NN shapes (``calls``: (batch, (S, K, M, C)), timed), where it is the
+    interpolation's VJP, and at the superset train step's GDANet shapes and
+    the tiny config's (``extra``), held to 1e-5 of each element's sum of
+    absolute terms (float32 atomics); out-of-range indices add nothing.
+    Library: ``index_add_`` over the materialised (B, S, K, C) terms
+    ``w * g``."""
+    inputs = gather_sum_backward_inputs(calls, g, dev, distinct=False)
+    inputs += gather_sum_backward_inputs(extra, g, dev)
     err = 0.0
     for w, idx, feats, cot in inputs:
         M = feats.shape[1]
@@ -621,8 +759,8 @@ def check_dfeats(calls, extra, g, dev):
         "library_ms": cuda_ms(library, 20),
     }
     # w, idx and g read once, dfeats written once; a multiply and an add per term
-    nbytes = sum(B_TRAIN * (S * K * (4 + 8) + S * C * 4 + M * C * 4) for S, K, M, C in calls)
-    return err, t, sum(2 * B_TRAIN * S * K * C for S, K, M, C in calls), nbytes
+    nbytes = sum(b * (S * K * (4 + 8) + S * C * 4 + M * C * 4) for b, (S, K, M, C) in calls)
+    return err, t, sum(2 * b * S * K * C for b, (S, K, M, C) in calls), nbytes
 
 
 def check_dweights(calls, extra, g, dev):
@@ -686,6 +824,100 @@ def check_top2(calls, extra, g, dev):
     }
     # x, y and the prices read once; best, second and the index written once
     return err, t, N * M * OPS_PAIR_TOP2, N * 12 + M * 16 + N * 16
+
+
+def interp_inputs(cases, g, dev) -> list:
+    """(unknown, known, feats) for each (batch, (groups, S, M, C)) case: the
+    queries are known points moved by up to 0.05, as shifted neighbour
+    positions are."""
+    out = []
+    for b, (groups, S, M, C) in cases:
+        n = b * groups
+        known = torch.randn(n, M, 3, generator=g).to(dev)
+        pick = torch.randint(0, M, (n, S), generator=g).to(dev)
+        shift = ((torch.rand(n, S, 3, generator=g) - 0.5) * 0.1).to(dev)
+        out.append((torch.gather(known, 1, pick[..., None].expand(n, S, 3)) + shift, known,
+                    torch.randn(n, M, C, generator=g).to(dev)))
+    return out
+
+
+def check_three_nn(calls, extra, g, dev):
+    """The fused 3-NN interpolation at every deformable call's shape, one
+    serving request's (batch B, timed) and one train step's (B_TRAIN):
+    indices equal, weights and outputs bit-equal (the kernel repeats the
+    plain version's roundings in its order); probes: queries on known
+    points (distance 0), duplicated known points (the lower index first),
+    M = 3, C not a multiple of 4. Library: ``cdist().topk(3)``, the weights
+    and a gather-weighted sum."""
+    inputs = interp_inputs(batched(calls, extra), g, dev)
+    known = torch.randn(4, 576, 3, generator=g).to(dev)
+    feats = torch.randn(4, 576, 192, generator=g).to(dev)
+    probes = [(known[:, :300].contiguous(), known, feats),
+              (known[:, :300].contiguous(), torch.cat([known, known], 1), torch.cat([feats, feats], 1)),
+              (known, known[:, :3].contiguous(), feats[:, :3, :7].contiguous())]
+    for u, k, f in inputs + probes:
+        out, idx, w = ops.pointops._three_nn_interpolate_forward(u, k, f, 1e-8)
+        pout, pidx, pw = ops.three_nn_interpolate_plain(u, k, f)
+        shape = (tuple(u.shape), tuple(k.shape), tuple(f.shape))
+        require(torch.equal(idx, pidx), f"three_nn_interpolate {shape}: indices differ")
+        require(torch.equal(w, pw) and torch.equal(out, pout), f"three_nn_interpolate {shape}: values differ")
+    _, idx, w = ops.pointops._three_nn_interpolate_forward(*probes[1], 1e-8)
+    require(bool((idx[..., 0] < 576).all() and (idx[..., 1] == idx[..., 0] + 576).all()
+                 and (w[..., 0] > 0.49).all()), "three_nn_interpolate: duplicated points misordered")
+    timed = inputs[:len(calls)]
+
+    def library():
+        for u, k, f in timed:
+            d, i = torch.cdist(u, k).topk(3, dim=-1, largest=False)
+            r = torch.reciprocal(d + 1e-8)
+            w_ = r / r.sum(-1, keepdim=True)
+            rows = torch.gather(f, 1, i.reshape(i.shape[0], -1, 1).expand(-1, -1, f.shape[-1]))
+            (w_[..., None] * rows.reshape(*i.shape, f.shape[-1])).sum(2)
+
+    t = {
+        "ms": cuda_ms(lambda: [ops.pointops._three_nn_interpolate_forward(u, k, f, 1e-8)
+                               for u, k, f in timed], 20),
+        "plain_ms": cuda_ms(lambda: [ops.three_nn_interpolate_plain(u, k, f) for u, k, f in timed], 3),
+        "library_ms": cuda_ms(library, 10),
+    }
+    # queries, known points and the table read once; out, idx and w written
+    # once; the search ranks every (query, known) pair, the sum 5 operations
+    # an output element
+    n_ops = sum(B * gr * (S * M * OPS_PAIR_ONE_WAY + S * C * OPS_INTERP_ELEM) for gr, S, M, C in calls)
+    nbytes = sum(B * gr * (S * 12 + M * 12 + M * C * 4 + S * C * 4 + S * 3 * (8 + 4))
+                 for gr, S, M, C in calls)
+    return 0.0, t, n_ops, nbytes
+
+
+def check_mxu(calls, extra, g, dev):
+    """The matmul-form bidirectional argmin at the eval suite's 16384 x
+    16384 at batch B (timed) and a ragged shape, random and on a dense
+    sphere: indices equal to the plain version's. Library: ``cdist`` with
+    ``use_mm_for_euclid_dist``, then argmin along both axes."""
+    for b, (N, M) in batched(calls, extra):
+        for kind in ("random", "sphere"):
+            if kind == "random":
+                x, y = torch.randn(b, N, 3, generator=g).to(dev), torch.randn(b, M, 3, generator=g).to(dev)
+            else:
+                x, y = sphere(g, b, N, dev), sphere(g, b, M, dev)
+            i1, i2 = ops.nn_argmin_bidir_mxu(x, y)
+            p1, p2 = ops.nn_argmin_bidir_mxu_plain(x, y)
+            require(torch.equal(i1, p1) and torch.equal(i2, p2),
+                    f"nn_bidir_mxu {kind} {b}x{N}x{M}: indices differ from plain")
+    (N, M), = calls
+    x, y = sphere(g, B, N, dev), sphere(g, B, M, dev)
+
+    def library():
+        d = torch.cdist(x, y, compute_mode="use_mm_for_euclid_dist")
+        return d.argmin(-1), d.argmin(1)
+
+    t = {
+        "ms": cuda_ms(lambda: ops.nn_argmin_bidir_mxu(x, y), 10),
+        "plain_ms": cuda_ms(lambda: ops.nn_argmin_bidir_mxu_plain(x, y), 1),
+        "library_ms": cuda_ms(library, 5),
+    }
+    n_ops = {PEAK_BF16_TC: B * N * M * OPS_PAIR_MXU_TC, PEAK_F32: B * N * M * OPS_PAIR_MXU_F32}
+    return 0.0, t, n_ops, B * (N + M) * 12 + B * (N + M) * 8
 
 
 # ------------------------------------------------------------- phase 3 path
@@ -894,6 +1126,44 @@ def check_launches(what: str, want: dict, times: int) -> dict:
     return got
 
 
+def run_train_steps(runner, batches, calls, what: str, phase: str):
+    """1 warm-up and ``TRAIN_STEPS`` timed steps of ``runner`` on
+    ``batches`` (the loader's, in order), their losses finite and their
+    launches the table ``calls``; returns (launch counts, step seconds,
+    peak bytes allocated)."""
+    secs, _ = timed_step(runner, batches[0], 0.0)  # warm-up (cuBLAS handles, caches)
+    log(f"{phase}: warm-up step {secs * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    times = []
+    for i, batch in enumerate(batches[1:1 + TRAIN_STEPS]):
+        secs, m = timed_step(runner, batch, (i + 1) / len(batches))
+        times.append(secs)
+        require(all(np.isfinite(v) for v in m.values()), f"{phase} step {i}: non-finite {m}")
+        log(f"{phase}: step {i}: {secs * 1e3:.1f} ms; sparse {m['sparse_loss']:.5f} dense "
+            f"{m['dense_loss']:.5f} grad norm {m['grad_norm']:.4f} lr {m['lr']:.3e}")
+    counts = check_launches(what, calls, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{phase}: median step {statistics.median(times) * 1e3:.1f} ms at batch {B_TRAIN}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; launches per step "
+        f"{json.dumps({k: v // TRAIN_STEPS for k, v in counts.items()})}")
+    return counts, times, peak
+
+
+def check_trained(model, before: dict, dead=("query_ranking", "encoder.norm"), frozen=()) -> None:
+    """After the steps: a frozen parameter (``frozen``) and one that gets no
+    gradient by construction (``dead``) has no gradient and its initial
+    value; every other parameter moved."""
+    for name, p in model.named_parameters():
+        if any(f in name for f in frozen):
+            require(not p.requires_grad and p.grad is None and torch.equal(p, before[name]),
+                    f"{name}: the frozen parameter was touched")
+        elif any(d in name for d in dead):
+            require(p.grad is None and torch.equal(p, before[name]), f"{name} was touched")
+        else:
+            require(not torch.equal(p, before[name]), f"{name} did not change in {TRAIN_STEPS + 1} steps")
+
+
 def train_phase(config, seed: int, dev, workdir: str) -> dict:
     """Phase 4: train steps, validate, test, checkpoint round trip through
     the runner; returns the launch counts of each part and the summary of
@@ -921,29 +1191,9 @@ def train_phase(config, seed: int, dev, workdir: str) -> dict:
     bn_before = (bn.running_mean.clone(), bn.running_var.clone())
     calls = train_step_calls(cfg)
 
-    secs, _ = timed_step(runner, batches[0], 0.0)  # warm-up (cuBLAS handles, caches)
-    log(f"phase 4: warm-up step {secs * 1e3:.1f} ms")
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    times = []
-    for i, batch in enumerate(batches[1:1 + TRAIN_STEPS]):
-        secs, m = timed_step(runner, batch, (i + 1) / len(train_loader))
-        times.append(secs)
-        require(all(np.isfinite(v) for v in m.values()), f"step {i}: non-finite {m}")
-        log(f"phase 4: step {i}: {secs * 1e3:.1f} ms; sparse {m['sparse_loss']:.5f} dense "
-            f"{m['dense_loss']:.5f} grad norm {m['grad_norm']:.4f} lr {m['lr']:.3e}")
-    counts = {"train": check_launches("the train steps", calls, TRAIN_STEPS)}
-    peak = torch.cuda.max_memory_allocated()
-    log(f"phase 4: median step {statistics.median(times) * 1e3:.1f} ms at batch {B_TRAIN}; "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB; launches per step "
-        f"{json.dumps({k: v // TRAIN_STEPS for k, v in counts['train'].items()})}")
-
-    dead = ("query_ranking", "encoder.norm")  # no gradient by construction / never applied
-    for name, p in model.named_parameters():
-        if any(d in name for d in dead):
-            require(p.grad is None and torch.equal(p, before[name]), f"{name} was touched")
-        else:
-            require(not torch.equal(p, before[name]), f"{name} did not change in {TRAIN_STEPS + 1} steps")
+    train, times, peak = run_train_steps(runner, batches, calls, "the train steps", "phase 4")
+    counts = {"train": train}
+    check_trained(model, before)
     require(not torch.equal(bn.running_mean, bn_before[0]) and not torch.equal(bn.running_var, bn_before[1]),
             "BN running statistics did not change")
 
@@ -978,6 +1228,8 @@ def train_phase(config, seed: int, dev, workdir: str) -> dict:
         f"batch 1 (masked path, {counts['test']['nn_one_direction']} one-direction launches; EMD, "
         f"{counts['test']['auction_top2']} top-2 launches): "
         + json.dumps({k: float(v) for k, v in scores.items()}))
+    mxu_counts, mxu = mxu_eval_check(runner, val_loader, test_loader, args, config, metrics, scores)
+    counts.update(mxu_counts)
     emd = emd_check(runner, next(iter(test_loader))[2], dev)
     log("phase 4: EMD on one test cloud: " + json.dumps({k: v for k, v in emd.items() if k != "profile"}))
     log("phase 4: one profiled EMD: " + json.dumps(emd["profile"]))
@@ -989,8 +1241,60 @@ def train_phase(config, seed: int, dev, workdir: str) -> dict:
                "median_step_ms": statistics.median(times) * 1e3,
                "max_memory_allocated_gib": peak / 2**30,
                "profiled_step": {k: v for k, v in prof.items() if k != "top"},
-               "emd": {k: emd[k] for k in ("emd_ms", "top2_launches", "iterations", "converged")}}
+               "emd": {k: emd[k] for k in ("emd_ms", "top2_launches", "iterations", "converged")},
+               "mxu_eval": mxu}
     return counts, summary
+
+
+def mxu_eval_check(runner, val_loader, test_loader, args, config, exact_val, exact_test):
+    """``validate`` and ``test`` again with ``IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER``
+    set for these two calls only: the eval suite's pass over each fine
+    cloud selects by the matmul-form kernel, whose launches must replace
+    the exact kernel's as ``eval_calls(..., mxu=True)`` says; CD-L1 and CD-L2
+    x1000 within 1e-3 of the exact run's, and the test table (its CDs from
+    the masked exact path, its F-score recomputed exactly) equal to the
+    exact run's; then one test step without EMD, profiled. Returns the
+    launch counts and the readings."""
+    cfg = config.model
+    prev = os.environ.get(MXU_FLAG)
+    os.environ[MXU_FLAG] = "1"
+    try:
+        _build.reset_launches()
+        val = port_runner.validate(runner, val_loader, 0, "silent")
+        counts = {"validate_mxu": check_launches("validate under the flag",
+                                                 eval_calls(cfg, "validate", mxu=True), EVAL_CLOUDS)}
+        _build.reset_launches()
+        test = port_runner.test(runner, test_loader, args, config, "silent")
+        counts["test_mxu"] = check_launches("test under the flag", eval_calls(cfg, "test", mxu=True),
+                                            EVAL_CLOUDS)
+        batch = next(iter(test_loader))[2]
+
+        def one_cloud():  # the test step without EMD: its masked and matmul-form passes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.test_step(batch, require_emd=False)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        prof = profile_run(one_cloud)
+    finally:
+        if prev is None:
+            os.environ.pop(MXU_FLAG, None)
+        else:
+            os.environ[MXU_FLAG] = prev
+    v, e = val.state_dict(), exact_val.state_dict()
+    out = {"validate": v, "validate_exact": e,
+           "cd_l1_delta_x1000": abs(v["CDL1"] - e["CDL1"]), "cd_l2_delta_x1000": abs(v["CDL2"] - e["CDL2"]),
+           "test": {k: float(x) for k, x in test.items()},
+           "launches_per_cloud": {k: {n: c[n] // EVAL_CLOUDS for n in ("nn_bidir_argmin", "nn_bidir_mxu")}
+                                  for k, c in counts.items()},
+           "profiled_test_cloud": {k: v for k, v in prof.items() if k != "top"}}
+    log("phase 4: validate and test under the matmul-form eval chamfer: " + json.dumps(out))
+    require(out["cd_l1_delta_x1000"] <= 1e-3 and out["cd_l2_delta_x1000"] <= 1e-3,
+            "the matmul-form eval chamfer moved a CD x1000 by more than 1e-3")
+    for k in ("F-Score", "CDL1", "CDL2"):
+        require(float(test[k]) == float(exact_test[k]), f"test under the flag: {k} differs from the exact run")
+    return counts, out
 
 
 def emd_check(runner, batch, dev) -> dict:
@@ -1123,33 +1427,10 @@ def superset_train_phase(seed: int, dev, card: str, workdir: str):
     stem_bn = model.base_model.im_encoder.base[1]
     stem_before = stem_bn.running_mean.clone()
 
-    secs, _ = timed_step(runner, batches[0], 0.0)
-    log(f"phase 6: warm-up step {secs * 1e3:.1f} ms")
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    times = []
-    for i, batch in enumerate(batches[1:1 + TRAIN_STEPS]):
-        secs, m = timed_step(runner, batch, (i + 1) / len(train_loader))
-        times.append(secs)
-        require(all(np.isfinite(v) for v in m.values()), f"superset step {i}: non-finite {m}")
-        log(f"phase 6: step {i}: {secs * 1e3:.1f} ms; sparse {m['sparse_loss']:.5f} dense "
-            f"{m['dense_loss']:.5f} grad norm {m['grad_norm']:.4f} lr {m['lr']:.3e}")
-    counts = {"superset_train": check_launches("the superset's train steps", superset_train_calls(cfg),
-                                               TRAIN_STEPS)}
-    peak = torch.cuda.max_memory_allocated()
-    log(f"phase 6: median superset step {statistics.median(times) * 1e3:.1f} ms at batch {B_TRAIN} on "
-        f"{card}; max_memory_allocated {peak / 2**30:.2f} GiB; launches per step "
-        f"{json.dumps({k: v // TRAIN_STEPS for k, v in counts['superset_train'].items()})}")
-
-    dead = ("query_ranking", "encoder.norm")
-    for name, p in model.named_parameters():
-        if "segmentator" in name:
-            require(not p.requires_grad and p.grad is None and torch.equal(p, before[name]),
-                    f"{name}: the frozen GDANet was touched")
-        elif any(d in name for d in dead):
-            require(p.grad is None and torch.equal(p, before[name]), f"{name} was touched")
-        else:
-            require(not torch.equal(p, before[name]), f"{name} did not change in {TRAIN_STEPS + 1} steps")
+    train, times, peak = run_train_steps(runner, batches, superset_train_calls(cfg),
+                                         "the superset's train steps", "phase 6")
+    counts = {"superset_train": train}
+    check_trained(model, before, frozen=("segmentator",))
     require(not torch.equal(stem_bn.running_mean, stem_before), "ResNet's BN statistics did not change")
 
     prof = profile_run(lambda: timed_step(runner, batches[1 + TRAIN_STEPS], 0.9)[0])
@@ -1164,6 +1445,82 @@ def superset_train_phase(seed: int, dev, card: str, workdir: str):
                "profiled_step": {k: v for k, v in prof.items() if k != "top"},
                "card_vs_cpu": {k: agree[k] for k in ("total_loss_rel_diff", "grad_norm_rel_diff",
                                                      "gdanet_selections", "gdanet_selections_differ")}}
+    return counts, summary
+
+
+# ------------------------------------------------------------ phase 7 path
+
+
+def deform_phase(seed: int, dev, card: str, workdir: str):
+    """Phase 7: ``AdaPoinTr-deform`` (:func:`deform_config`) at full width
+    with seeded weights: ``REQUESTS`` requests of ``B`` with metrics and
+    their launch table (8 fused 3-NN calls a request), a profiled request,
+    one request at batch 2 against the CPU; then 1 warm-up and
+    ``TRAIN_STEPS`` steps of ``Runner.train_step`` at ``B_TRAIN`` with their
+    table (8 fused 3-NN calls and 8 of their VJP, ``dfeats``), the offset
+    nets and ``proj_v_off`` untouched and every other trainable parameter
+    moved, a profiled step and the peak memory, and one step at batch 2
+    against the CPU. Returns the launch counts and the summary."""
+    config = deform_config()
+    cfg = config.model
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 7: AdaPoinTr-deform built on {dev}, {n_params} parameters, {time.perf_counter() - t0:.1f} s")
+    batches = make_requests(cfg, seed, REQUESTS + 1)
+    serve(model, cfg, batches[:1], dev)  # warm-up request
+    _build.reset_launches()
+    secs, scores = serve(model, cfg, batches[1:], dev)
+    calls = dict(request_calls(cfg), scatter_add_rows=[], nn_one_direction=[])
+    counts = {"deform_request": check_launches("the deformable requests", calls, REQUESTS)}
+    for r, (sec, (f, l1, l2)) in enumerate(zip(secs, scores)):
+        log(f"phase 7: request {r}: {B}x{N_PARTIAL} -> {B}x{int(cfg.num_points)} in {sec * 1e3:.1f} ms; "
+            f"CD-L1 {l1:.4f} CD-L2 {l2:.4f} F@0.01 {f:.4f}")
+    log(f"phase 7: median deformable request {statistics.median(secs) * 1e3:.1f} ms on {card}; launches "
+        f"per request {json.dumps({k: v // REQUESTS for k, v in counts['deform_request'].items()})}")
+    prof = profile_run(lambda: serve(model, cfg, [batches[1]], dev)[0][0])
+    log("phase 7: one profiled deformable request: " + json.dumps(prof))
+    # batch 2 against the CPU, the last ranking layer scaled on both (as in phase 5)
+    cpu_model = build_model(cfg, device="cpu", seed=seed)
+    for m in (model, cpu_model):
+        with torch.no_grad():
+            m.base_model.query_ranking[4].weight.mul_(1000.0)
+    agree = cpu_agreement(model, cpu_model, {k: v[:2] for k, v in batches[1].items()}, dev)
+    log("phase 7: card vs CPU at batch 2: " + json.dumps(agree))
+    require(min(agree["coarse_matched"], agree["fine_matched"]) >= 0.99,
+            "AdaPoinTr-deform: the card's clouds disagree with the CPU's")
+    require(abs(agree["cd_l1_card"] - agree["cd_l1_cpu"]) <= 1e-2 * agree["cd_l1_cpu"],
+            "AdaPoinTr-deform: the card's CD-L1 disagrees with the CPU's")
+    del model, cpu_model
+
+    swap_synthetic(config, train_len=B_TRAIN * (TRAIN_STEPS + 2))
+    config.dataset.train.others.bs = B_TRAIN
+    args = types.SimpleNamespace(device="cuda", seed=seed, num_workers=0, experiment_path=workdir)
+    _, train_loader = dataset_builder(args, config.dataset.train)
+    runner = port_runner.Runner(args, config, logger="silent")
+    runner.make_train_state(len(train_loader))
+    batches = [b for _, _, b in train_loader]
+    before = {n: p.detach().clone() for n, p in runner.model.named_parameters()}
+    train, times, peak = run_train_steps(runner, batches, train_step_calls(cfg),
+                                         "the deformable train steps", "phase 7")
+    counts["deform_train"] = train
+    check_trained(runner.model, before, dead=("query_ranking", "encoder.norm", "linear_offset", "proj_v_off"))
+    step_prof = profile_run(lambda: timed_step(runner, batches[1 + TRAIN_STEPS], 0.9)[0])
+    log("phase 7: one profiled deformable train step: " + json.dumps(step_prof))
+    del runner, batches
+    torch.cuda.empty_cache()
+    step_agree = card_vs_cpu_step(deform_config(), seed, workdir)
+    log("phase 7: card vs CPU, one deformable step at batch 2: " + json.dumps(step_agree))
+    summary = {"request_batch": B, "request_ms": [t * 1e3 for t in secs],
+               "median_request_ms": statistics.median(secs) * 1e3,
+               "profiled_request": {k: v for k, v in prof.items() if k != "top"},
+               "card_vs_cpu_request": {k: agree[k] for k in ("coarse_matched", "fine_matched",
+                                                             "coarse_hausdorff", "fine_hausdorff")},
+               "train_batch": B_TRAIN, "step_ms": [t * 1e3 for t in times],
+               "median_step_ms": statistics.median(times) * 1e3,
+               "max_memory_allocated_gib": peak / 2**30,
+               "profiled_step": {k: v for k, v in step_prof.items() if k != "top"},
+               "card_vs_cpu_step": {k: step_agree[k] for k in ("total_loss_rel_diff", "grad_norm_rel_diff")}}
     return counts, summary
 
 
@@ -1216,16 +1573,28 @@ def main(argv=None) -> int:
     tiny = cfg_from_yaml_file("cfgs/SegImgPCN_models/ImgEncSegDec-tiny.yaml").model
     bwd = superset_train_calls(seg_cfgs[0])["weighted_gather_sum"]
     bwd_extra = [(2, c) for c in gdanet_calls(int(tiny.num_query))["weighted_gather_sum"][:1]]
-    check_calls.update(weighted_gather_sum_dfeats=bwd, weighted_gather_sum_dweights=bwd,
-                       auction_top2=[(n_fine, n_fine)])
-    extra.update(weighted_gather_sum_dfeats=bwd_extra, weighted_gather_sum_dweights=bwd_extra)
+    check_calls.update(weighted_gather_sum_dweights=bwd, auction_top2=[(n_fine, n_fine)])
+    extra.update(weighted_gather_sum_dweights=bwd_extra)
+    # the deformable model's fused 3-NN calls: one request's at B (timed) and
+    # one train step's at B_TRAIN; their VJP, dfeats at K = 3, at the step's
+    # (timed), then at the gather-sum's GDANet shapes; the matmul-form argmin
+    # at the eval suite's 16384 x 16384 and a ragged shape
+    dcfg = deform_config().model
+    d_train = train_step_calls(dcfg)
+    check_calls.update(three_nn_interpolate=request_calls(dcfg)["three_nn_interpolate"],
+                       nn_bidir_mxu=[(n_fine, n_fine)],
+                       weighted_gather_sum_dfeats=[(B_TRAIN * gr, (S, 3, M, C))
+                                                   for gr, S, M, C in d_train["weighted_gather_sum_dfeats"]])
+    extra.update(three_nn_interpolate=[(B_TRAIN, c) for c in d_train["three_nn_interpolate"]],
+                 nn_bidir_mxu=[(2, (4097, n_fine - 1))],
+                 weighted_gather_sum_dfeats=[(B_TRAIN, c) for c in bwd] + bwd_extra)
     g = torch.Generator().manual_seed(args.seed)
     checks = {"knn": check_knn, "fps": check_fps, "gather_rows": check_gather,
               "nn_bidir_argmin": check_bidir, "scatter_add_rows": check_scatter,
               "nn_one_direction": check_one_direction,
               "weighted_gather_sum": check_weighted_gather_sum,
               "weighted_gather_sum_dfeats": check_dfeats, "weighted_gather_sum_dweights": check_dweights,
-              "auction_top2": check_top2}
+              "auction_top2": check_top2, "three_nn_interpolate": check_three_nn, "nn_bidir_mxu": check_mxu}
     results = {}
     for name, check in checks.items():
         results[name] = err, t, _, _ = check(check_calls[name], extra.get(name, []), g, dev)
@@ -1286,10 +1655,21 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     counts.update(superset_counts)
 
+    # ---- phase 7: AdaPoinTr with deformable local attention at full width
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        deform_counts, deform_summary = deform_phase(args.seed, dev, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    counts.update(deform_counts)
+
     kernels = []
     for name in _build.KERNELS:
         err, t, n_ops, nbytes = results[name]
-        op_ms, byte_ms = n_ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        # a count of float32 operations, or counts by the peak rate of their type
+        by_rate = n_ops if isinstance(n_ops, dict) else {PEAK_F32: n_ops}
+        op_ms = sum(n / rate for rate, n in by_rate.items()) * 1e3
+        byte_ms = nbytes / PEAK_BYTES * 1e3
         src, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1299,7 +1679,11 @@ def main(argv=None) -> int:
             "launches_per_superset_request": counts["ImgEncSegDecAdaPoinTrVariableLoss"][name] // REQUESTS,
             "launches_per_train_step": counts["train"][name] // TRAIN_STEPS,
             "launches_per_superset_train_step": counts["superset_train"][name] // TRAIN_STEPS,
+            "launches_per_deform_request": counts["deform_request"][name] // REQUESTS,
+            "launches_per_deform_train_step": counts["deform_train"][name] // TRAIN_STEPS,
             "launches_validate": counts["validate"][name], "launches_test": counts["test"][name],
+            "launches_validate_mxu": counts["validate_mxu"][name],
+            "launches_test_mxu": counts["test_mxu"][name],
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
@@ -1313,7 +1697,8 @@ def main(argv=None) -> int:
                                   "card_vs_cpu_step": {k: agree[k] for k in (
                                       "total_loss_rel_diff", "grad_norm_rel_diff")},
                                   "superset_serving": superset_summary,
-                                  "superset_training": superset_train_summary}))
+                                  "superset_training": superset_train_summary,
+                                  "deform": deform_summary}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

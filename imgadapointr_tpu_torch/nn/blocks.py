@@ -1,11 +1,11 @@
 """Config-driven encoder/decoder transformer stacks.
 
-Counterpart of ``imgadapointr_tpu/nn/blocks.py`` for the block tokens
-``attn`` and ``attn-graph`` with ``combine_style: concat`` (the
-flagship's), with the denoise mask of the training forward. The
-deformable tokens wait (ROADMAP Queue 1: deformable attention); the
-'onebyone' combine style, LayerScale, dropout and stochastic depth come
-with the configs that need them. Module names follow the reference state dict
+Counterpart of ``imgadapointr_tpu/nn/blocks.py`` for every block token
+(``attn`` and the local tokens ``graph``, ``rw_deform``, ``deform`` and
+``deform_graph``, alone or as ``attn-<local>``) with ``combine_style:
+concat``, with the denoise mask of the training forward. The 'onebyone'
+combine style, LayerScale, dropout and stochastic depth come with the
+configs that need them. Module names follow the reference state dict
 (``encoder.blocks.blocks.{i}``, ``decoder.blocks.blocks.{i}``).
 """
 
@@ -16,24 +16,22 @@ from torch import nn
 
 from ..ops import knn_point
 from .layers import Attention, CrossAttention, Linear, Mlp
-from .local_attention import DynamicGraphAttention
+from .local_attention import make_local_attn
 
-_DEFERRED_TOKENS = ("rw_deform", "deform", "deform_graph")
+_LOCAL_TOKENS = ("rw_deform", "deform", "graph", "deform_graph")
+# the cross-attention half takes no 'rw_deform' (imgadapointr_tpu/nn/blocks.py:268-270)
+_CROSS_LOCAL_TOKENS = ("deform", "graph", "deform_graph")
 
 
-def _parse_style(style: str):
-    """'attn' / 'attn-graph' / 'graph' -> (has_attn, has_graph)."""
+def _parse_style(style: str, local_tokens=_LOCAL_TOKENS):
+    """'attn' / '<local>' / 'attn-<local>' -> (has_attn, local token or None)."""
     tokens = style.split("-")
-    for t in tokens:
-        if t in _DEFERRED_TOKENS:
-            raise NotImplementedError(
-                f"block token {t!r}: deformable attention waits (ROADMAP Queue 1)"
-            )
-        if t not in ("attn", "graph"):
-            raise ValueError(f"unexpected block token {t!r} in {style!r}")
     if not 1 <= len(tokens) <= 2:
         raise ValueError(f"invalid block style {style!r}")
-    return "attn" in tokens, "graph" in tokens
+    for t in tokens:
+        if t != "attn" and t not in local_tokens:
+            raise ValueError(f"unexpected block token {t!r} in {style!r}")
+    return "attn" in tokens, next((t for t in tokens if t != "attn"), None)
 
 
 def _check_combine(style: str) -> None:
@@ -59,17 +57,19 @@ def _norm(dim: int) -> nn.LayerNorm:
 
 
 class SelfAttnBlockApi(nn.Module):
-    """Encoder block: global attention and/or graph attention, then MLP."""
+    """Encoder block: global attention and/or local attention, then MLP;
+    every local token takes the same (x, pos, idx) call."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False,
-                 block_style="attn-graph", combine_style="concat", k=10):
+                 block_style="attn-graph", combine_style="concat", k=10, n_group=2):
         super().__init__()
         _check_combine(combine_style)
-        has_attn, has_graph = _parse_style(block_style)
+        has_attn, local = _parse_style(block_style)
         self.norm1 = _norm(dim)
         self.attn = Attention(dim, num_heads, qkv_bias) if has_attn else None
-        self.local_attn = DynamicGraphAttention(dim, k) if has_graph else None
-        self.merge_map = Linear(dim * 2, dim) if has_attn and has_graph else None
+        self.local_attn = (make_local_attn(local, dim, num_heads, qkv_bias, k, n_group)
+                           if local else None)
+        self.merge_map = Linear(dim * 2, dim) if has_attn and local else None
         self.norm2 = _norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
@@ -87,26 +87,31 @@ class SelfAttnBlockApi(nn.Module):
 
 class CrossAttnBlockApi(nn.Module):
     """Decoder block: a self-attention half and a cross-attention half,
-    each global and/or graph, then MLP."""
+    each global and/or local, then MLP. A 'rw_deform' self half is called
+    without ``denoise_length``: in the denoise task it searches its own
+    neighbours over all tokens (imgadapointr_tpu/nn/blocks.py:222-228)."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False,
                  self_attn_block_style="attn-graph", self_attn_combine_style="concat",
                  cross_attn_block_style="attn-graph", cross_attn_combine_style="concat",
-                 k=10):
+                 k=10, n_group=2):
         super().__init__()
         _check_combine(self_attn_combine_style)
         _check_combine(cross_attn_combine_style)
-        sa_attn, sa_graph = _parse_style(self_attn_block_style)
-        ca_attn, ca_graph = _parse_style(cross_attn_block_style)
+        sa_attn, sa_local = _parse_style(self_attn_block_style)
+        ca_attn, ca_local = _parse_style(cross_attn_block_style, _CROSS_LOCAL_TOKENS)
+        self.self_local_token = sa_local
         self.norm1 = _norm(dim)
         self.self_attn = Attention(dim, num_heads, qkv_bias) if sa_attn else None
-        self.local_self_attn = DynamicGraphAttention(dim, k) if sa_graph else None
-        self.self_attn_merge_map = Linear(dim * 2, dim) if sa_attn and sa_graph else None
+        self.local_self_attn = (make_local_attn(sa_local, dim, num_heads, qkv_bias, k, n_group)
+                                if sa_local else None)
+        self.self_attn_merge_map = Linear(dim * 2, dim) if sa_attn and sa_local else None
         self.norm_q = _norm(dim)
         self.norm_v = _norm(dim)
         self.cross_attn = CrossAttention(dim, num_heads, qkv_bias) if ca_attn else None
-        self.local_cross_attn = DynamicGraphAttention(dim, k) if ca_graph else None
-        self.cross_attn_merge_map = Linear(dim * 2, dim) if ca_attn and ca_graph else None
+        self.local_cross_attn = (make_local_attn(ca_local, dim, num_heads, qkv_bias, k, n_group)
+                                 if ca_local else None)
+        self.cross_attn_merge_map = Linear(dim * 2, dim) if ca_attn and ca_local else None
         self.norm2 = _norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
@@ -116,6 +121,8 @@ class CrossAttnBlockApi(nn.Module):
         nq = self.norm1(q)
 
         def local_self():
+            if self.self_local_token == "rw_deform":
+                return self.local_self_attn(nq, q_pos, idx=self_attn_idx)
             return self.local_self_attn(nq, q_pos, idx=self_attn_idx,
                                         denoise_length=denoise_length)
 
@@ -157,14 +164,14 @@ class PointTransformerEncoder(nn.Module):
 
     def __init__(self, embed_dim=256, depth=12, num_heads=4, mlp_ratio=4.0,
                  qkv_bias=True, block_style_list=("attn-graph",),
-                 combine_style="concat", k=10):
+                 combine_style="concat", k=10, n_group=2):
         super().__init__()
         if len(block_style_list) != depth:
             raise ValueError("block_style_list must have depth entries")
         self.k = k
         self.blocks = _Stack([
             SelfAttnBlockApi(embed_dim, num_heads, mlp_ratio, qkv_bias,
-                             block_style_list[i], combine_style, k)
+                             block_style_list[i], combine_style, k, n_group)
             for i in range(depth)
         ])
         self.norm = nn.LayerNorm(embed_dim)
@@ -179,13 +186,15 @@ class PointTransformerEncoder(nn.Module):
 class PointTransformerDecoder(nn.Module):
     """CrossAttnBlockApi stack; the self and cross kNN indices are computed
     once for the whole stack. With denoise tokens the self index is left to
-    each graph block's two-phase search (reference base_blocks.py:337-367)."""
+    each local block's own search: two-phase for 'graph', 'deform' and
+    'deform_graph', over all tokens for 'rw_deform' (reference
+    base_blocks.py:337-367)."""
 
     def __init__(self, embed_dim=256, depth=12, num_heads=4, mlp_ratio=4.0,
                  qkv_bias=True, self_attn_block_style_list=("attn-graph",),
                  self_attn_combine_style="concat",
                  cross_attn_block_style_list=("attn-graph",),
-                 cross_attn_combine_style="concat", k=10):
+                 cross_attn_combine_style="concat", k=10, n_group=2):
         super().__init__()
         if not len(self_attn_block_style_list) == len(cross_attn_block_style_list) == depth:
             raise ValueError("block style lists must have depth entries")
@@ -193,7 +202,8 @@ class PointTransformerDecoder(nn.Module):
         self.blocks = _Stack([
             CrossAttnBlockApi(embed_dim, num_heads, mlp_ratio, qkv_bias,
                               self_attn_block_style_list[i], self_attn_combine_style,
-                              cross_attn_block_style_list[i], cross_attn_combine_style, k)
+                              cross_attn_block_style_list[i], cross_attn_combine_style, k,
+                              n_group)
             for i in range(depth)
         ])
 
@@ -218,7 +228,7 @@ def _common(cfg) -> dict:
     return dict(
         embed_dim=int(cfg.embed_dim), depth=int(cfg.depth), num_heads=int(cfg.num_heads),
         mlp_ratio=float(cfg.get("mlp_ratio", 4.0)), qkv_bias=bool(cfg.get("qkv_bias", True)),
-        k=int(cfg.get("k", 10)),
+        k=int(cfg.get("k", 10)), n_group=int(cfg.get("n_group", 2)),
     )
 
 

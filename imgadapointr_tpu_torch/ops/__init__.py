@@ -5,6 +5,9 @@ from .chamfer import (
     chamfer_l1_pm,
     chamfer_l2,
     chamfer_l2_split,
+    mxu_eval_chamfer_active,
+    nn_argmin_bidir_mxu,
+    nn_argmin_bidir_mxu_plain,
     nn_bidir_argmin,
     nn_bidir_argmin_plain,
     nn_distance,
@@ -35,6 +38,11 @@ from .pointops import (
     knn_with_distance,
     scatter_add_rows,
     scatter_add_rows_plain,
+    three_interpolate,
+    three_nn,
+    three_nn_interpolate,
+    three_nn_interpolate_plain,
+    three_weights,
 )
 from .sampling import jitter_points
 
@@ -48,5 +56,7 @@ __all__ = [
     "scatter_add_rows_plain", "estimate_pointcloud_normals", "weighted_gather_sum",
     "weighted_gather_sum_plain", "weighted_gather_sum_dfeats", "weighted_gather_sum_dfeats_plain",
     "weighted_gather_sum_dweights", "weighted_gather_sum_dweights_plain", "auction_top2",
-    "auction_top2_plain", "emd_auction", "emd_distance_metric",
+    "auction_top2_plain", "emd_auction", "emd_distance_metric", "mxu_eval_chamfer_active",
+    "nn_argmin_bidir_mxu", "nn_argmin_bidir_mxu_plain", "three_interpolate", "three_nn",
+    "three_nn_interpolate", "three_nn_interpolate_plain", "three_weights",
 ]

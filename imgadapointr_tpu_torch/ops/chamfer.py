@@ -11,10 +11,15 @@ indices in diff form, through the row-gather kernel, as the JAX package
 does (``chamfer.py:270-273``). Its backward adds each point's own term and
 the cross term scattered from the other cloud
 (:func:`~.pointops.scatter_add_rows`, kernel ``csrc/scatter_add_rows.cu``).
+:func:`nn_distance_eval`, the eval metrics' entry, may instead select by
+the opt-in matmul-form kernel :func:`nn_argmin_bidir_mxu`
+(``csrc/nn_bidir_mxu.cu``; ``IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER``).
 Each kernel has its plain PyTorch version beside its wrapper.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -162,10 +167,113 @@ def nn_distance(x: torch.Tensor, y: torch.Tensor, w1: torch.Tensor | None = None
     return _NNDistance.apply(x, y, w1, w2)
 
 
+def _mxu_split(p: torch.Tensor):
+    """(hi, lo, squared norm) of float32 points (B, N, 3): ``hi = bf16(p)``,
+    ``lo = bf16(p - hi)`` (round to nearest even, back in float32) and
+    ``(p0*p0 + p1*p1) + p2*p2``."""
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    return hi, lo, sqdist(p)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, N, 3) x (B, T, 3) -> (B, N, T): ``(a0 b0 + a1 b1) + a2 b2``."""
+    t = [a[:, :, None, c] * b[:, None, :, c] for c in range(3)]
+    return (t[0] + t[1]) + t[2]
+
+
+def nn_argmin_bidir_mxu_plain(x: torch.Tensor, y: torch.Tensor):
+    """Plain version of :func:`nn_argmin_bidir_mxu`: the matmul-form
+    distance of the kernel (``csrc/nn_bidir_mxu.cu``) in its order of
+    operations, in float32, over column tiles of y; first index of the
+    minimum in both directions."""
+    x, y = x.float(), y.float()
+    B, N, _ = x.shape
+    M = y.shape[1]
+    xh, xl, xs = _mxu_split(x)
+    yh, yl, ys = _mxu_split(y)
+    tile = max(1, min(M, _PLAIN_BLOCK // max(1, B * N)))
+    best_d = torch.full((B, N), float("inf"), dtype=torch.float32, device=x.device)
+    i1 = torch.zeros(B, N, dtype=torch.int64, device=x.device)
+    i2 = torch.empty(B, M, dtype=torch.int64, device=x.device)
+    for base in range(0, M, tile):
+        cols = slice(base, base + tile)
+        yh_t, yl_t = yh[:, cols], yl[:, cols]
+        cross = (_dot3(xh, yh_t) + _dot3(xh, yl_t)) + _dot3(xl, yh_t)
+        d = (xs[:, :, None] - 2.0 * cross) + ys[:, None, cols]
+        i2[:, cols] = d.argmin(dim=1)  # every row is in this block
+        amin = d.argmin(dim=-1)
+        dmin = d.gather(-1, amin[..., None])[..., 0]
+        upd = dmin < best_d  # strict: an earlier tile keeps its tie
+        best_d = torch.where(upd, dmin, best_d)
+        i1 = torch.where(upd, amin + base, i1)
+    return i1, i2
+
+
+def nn_argmin_bidir_mxu(x: torch.Tensor, y: torch.Tensor):
+    """(i1 (B, N), i2 (B, M)) int64 by the matmul-form distance
+    ``(|x|² − 2·x·y) + |y|²`` with the cross term from bf16 hi/lo parts
+    (``imgadapointr_tpu/ops/pallas/nn_distance.py:217-340``), first index
+    on ties: EVAL METRICS ONLY. Its selection carries a band of about 2e-5
+    relative, so the caller recomputes the distances exactly from the
+    indices (:func:`nn_distance_eval`); never for a training loss. Kernel
+    ``csrc/nn_bidir_mxu.cu`` on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    _check_clouds("nn_argmin_bidir_mxu", x, y)
+    if _on_cpu("nn_argmin_bidir_mxu", x):
+        return nn_argmin_bidir_mxu_plain(x, y)
+    _build.require_cuda_f32("nn_argmin_bidir_mxu", x.device, x, y, last_dim=3)
+    B, N, _ = x.shape
+    M = y.shape[1]
+    i1 = torch.empty(B, N, dtype=torch.int64, device=x.device)
+    i2 = torch.empty(B, M, dtype=torch.int64, device=x.device)
+    _build.launch(
+        "nn_bidir_mxu", "nn_bidir_mxu_f32", x.device,
+        x.data_ptr(), y.data_ptr(), i1.data_ptr(), i2.data_ptr(), B, N, M,
+    )
+    return i1, i2
+
+
+def mxu_eval_chamfer_active(n: int, m: int, device) -> bool:
+    """True iff :func:`nn_distance_eval` selects by the matmul-form kernel
+    for (N, M)-point clouds on ``device``: the JAX gate
+    (``imgadapointr_tpu/ops/chamfer.py:391-406``) with "on a CUDA device"
+    for "on the TPU": ``IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER`` set, N·M ≥
+    2**22 and N, M ≤ 2**18. Read at every call. On the H100 the flag
+    does not pay: the kernel computes its bf16 products on CUDA cores and
+    is slower than the exact kernel (3.96 against 1.94 ms at 8 x 16384²,
+    ``chip_smoke.py``), and its selection carries a band the exact path
+    does not; it stays the counterpart of the JAX option until a
+    tensor-core design replaces it."""
+    return bool(
+        torch.device(device).type == "cuda"
+        and n * m >= 1 << 22
+        and n <= _BIDIR_MAX_POINTS
+        and m <= _BIDIR_MAX_POINTS
+        and _env_flag("IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER")
+    )
+
+
+def _env_flag(name: str) -> bool:
+    """A boolean environment flag: set and not one of '', '0', 'false',
+    'no', 'off' (any case)."""
+    return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no", "off")
+
+
 def nn_distance_eval(x: torch.Tensor, y: torch.Tensor):
-    """:func:`nn_distance` for EVAL METRICS ONLY; non-differentiable by
-    design (the inputs are detached, as the JAX version stops gradients)."""
-    return nn_distance(x.detach(), y.detach())
+    """(d1, d2, i1, i2) of :func:`nn_distance` for EVAL METRICS ONLY;
+    non-differentiable by design (the inputs are detached, as the JAX
+    version stops gradients). By default this is the exact path. Under
+    :func:`mxu_eval_chamfer_active` the matmul-form kernel selects the
+    indices and the distances are recomputed exactly from them
+    (``imgadapointr_tpu/ops/chamfer.py:439-449``)."""
+    x, y = x.detach().contiguous(), y.detach().contiguous()
+    if not mxu_eval_chamfer_active(x.shape[1], y.shape[1], x.device):
+        return nn_distance(x, y)
+    i1, i2 = nn_argmin_bidir_mxu(x, y)
+    d1 = sqdist(x - index_points(y, i1)).clamp_min(0.0)
+    d2 = sqdist(y - index_points(x, i2)).clamp_min(0.0)
+    return d1, d2, i1, i2
 
 
 def _masked_mean(v: torch.Tensor, w: torch.Tensor | None) -> torch.Tensor:

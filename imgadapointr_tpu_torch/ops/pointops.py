@@ -1,7 +1,8 @@
-"""Point-cloud geometry ops: row gather, kNN, farthest point sampling.
+"""Point-cloud geometry ops: row gather, kNN, farthest point sampling,
+inverse-distance 3-NN interpolation.
 
 Counterparts of ``imgadapointr_tpu/ops/pointops.py`` in batch-last (B, N, C)
-layout. Each of the four kernels has a wrapper and a plain PyTorch
+layout. Each of the five kernels has a wrapper and a plain PyTorch
 version of the same function beside it:
 
 - :func:`gather_rows` / :func:`gather_rows_plain` (``csrc/gather_rows.cu``)
@@ -9,6 +10,9 @@ version of the same function beside it:
   (``csrc/scatter_add_rows.cu``), the gather's backward
 - :func:`knn_with_distance` / :func:`knn_plain` (``csrc/knn.cu``)
 - :func:`furthest_point_sample` / :func:`fps_plain` (``csrc/fps.cu``)
+- :func:`three_nn_interpolate` / :func:`three_nn_interpolate_plain`
+  (``csrc/three_nn_interpolate.cu``), whose backward is the weighted
+  gather-sum's ``dfeats`` kernel
 
 A wrapper launches its kernel for a CUDA tensor and raises on a dtype,
 shape or contiguity the kernel does not take; it takes the plain version
@@ -262,3 +266,111 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 def fps(data: torch.Tensor, number: int) -> torch.Tensor:
     """FPS returning the sampled coordinates (B, number, 3)."""
     return index_points(data, furthest_point_sample(data, number))
+
+
+# ------------------------------------------------ inverse-distance 3-NN interpolation
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor):
+    """(dist (B, N, 3), idx (B, N, 3) int64): the 3 nearest ``known`` (B, M, 3)
+    points of each ``unknown`` (B, N, 3) query and their *euclidean* (not
+    squared) distances, ascending, first index on ties (pointnet2
+    ``three_nn``; ``imgadapointr_tpu/ops/pointops.py:194-207``)."""
+    sq, idx = knn_with_distance(3, known, unknown)
+    return torch.sqrt(sq.clamp_min(0.0)), idx
+
+
+def three_weights(sq: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """(..., 3) squared distances -> inverse-distance weights
+    ``r_i / ((r_0 + r_1) + r_2)`` with ``r_i = 1 / (sqrt(d_i) + eps)``, in the
+    fused kernel's order of operations."""
+    r = torch.reciprocal(torch.sqrt(sq.clamp_min(0.0)) + eps)
+    return r / ((r[..., 0] + r[..., 1]) + r[..., 2])[..., None]
+
+
+def three_interpolate(feats: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``out[b, n] = ((w_0 f[idx_0] + w_1 f[idx_1]) + w_2 f[idx_2])``: feats
+    (B, M, C), idx and weight (B, N, 3) -> (B, N, C), summed in the fused
+    kernel's order (no matrix product, whose order would be the library's)."""
+    rows = [gather_rows_plain(feats, idx[..., j]) for j in range(3)]
+    return (weight[..., 0, None] * rows[0] + weight[..., 1, None] * rows[1]) \
+        + weight[..., 2, None] * rows[2]
+
+
+def three_nn_interpolate_plain(unknown: torch.Tensor, known: torch.Tensor, feats: torch.Tensor,
+                               eps: float = 1e-8):
+    """Plain version of the fused kernel: (out (B, N, C), idx (B, N, 3),
+    weight (B, N, 3)) from :func:`knn_plain`, :func:`three_weights` and
+    :func:`three_interpolate`."""
+    sq, idx = knn_plain(3, known, unknown)
+    w = three_weights(sq, eps)
+    return three_interpolate(feats, idx, w), idx, w
+
+
+def _three_nn_interpolate_forward(unknown: torch.Tensor, known: torch.Tensor,
+                                  feats: torch.Tensor, eps: float):
+    """The fused forward without autograd: the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if (unknown.dim() != 3 or known.dim() != 3 or feats.dim() != 3
+            or not unknown.shape[0] == known.shape[0] == feats.shape[0]
+            or feats.shape[1] != known.shape[1] or unknown.shape[-1] != 3 or known.shape[-1] != 3):
+        raise ValueError(
+            f"three_nn_interpolate: unknown (B, N, 3), known (B, M, 3) and feats (B, M, C) "
+            f"expected, got {tuple(unknown.shape)}, {tuple(known.shape)} and {tuple(feats.shape)}"
+        )
+    if known.shape[1] < 3:
+        raise ValueError(f"three_nn_interpolate: needs at least 3 known points, got {known.shape[1]}")
+    if _on_cpu("three_nn_interpolate", feats):
+        return three_nn_interpolate_plain(unknown, known, feats, eps)
+    _build.require_cuda_f32("three_nn_interpolate", feats.device, unknown, known, feats)
+    B, N, _ = unknown.shape
+    M, C = feats.shape[1], feats.shape[2]
+    out = torch.empty(B, N, C, dtype=torch.float32, device=feats.device)
+    idx = torch.empty(B, N, 3, dtype=torch.int64, device=feats.device)
+    w = torch.empty(B, N, 3, dtype=torch.float32, device=feats.device)
+    _build.launch(
+        "three_nn_interpolate", "three_nn_interpolate_f32", feats.device,
+        unknown.data_ptr(), known.data_ptr(), feats.data_ptr(), out.data_ptr(), idx.data_ptr(),
+        w.data_ptr(), B, N, M, C, eps,
+    )
+    return out, idx, w
+
+
+class _ThreeNNInterpolate(torch.autograd.Function):
+    """The fused forward and its VJP (``imgadapointr_tpu/ops/pointops.py:
+    285-303``): ``dfeats[b, idx] += w * g`` is the weighted gather-sum's
+    ``dfeats`` at K = 3; the positions get no gradient (pointnet2's
+    ``three_nn`` has none)."""
+
+    @staticmethod
+    def forward(ctx, unknown, known, feats, eps):
+        out, idx, w = _three_nn_interpolate_forward(unknown, known, feats, eps)
+        ctx.save_for_backward(idx, w)
+        ctx.rows = feats.shape[1]
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from .gather_sum import weighted_gather_sum_dfeats
+
+        idx, w = ctx.saved_tensors
+        dfeats = None
+        if ctx.needs_input_grad[2]:
+            dfeats = weighted_gather_sum_dfeats(w, idx, g.contiguous(), ctx.rows)
+        return None, None, dfeats, None
+
+
+def three_nn_interpolate(unknown: torch.Tensor, known: torch.Tensor, feats: torch.Tensor,
+                         eps: float = 1e-8) -> torch.Tensor:
+    """Inverse-distance 3-NN interpolation of ``feats`` (B, M, C) at the
+    ``known`` (B, M, 3) points onto the ``unknown`` (B, N, 3) queries:
+    ``w_i = (1/(d_i+eps)) / Σ_j 1/(d_j+eps)`` with euclidean ``d``, the 3
+    nearest by diff-form distance, first index on ties (the reference's
+    ``three_nn`` + ``three_interpolate`` chain). One kernel,
+    ``csrc/three_nn_interpolate.cu``, on a CUDA tensor at every shape (the
+    TPU's size gate, ``imgadapointr_tpu/ops/pointops.py:254-263``, is a VMEM
+    limit); the plain version on a CPU tensor. Differentiable in ``feats``
+    only: the positions are detached, as the JAX package stops them."""
+    return _ThreeNNInterpolate.apply(unknown.detach().contiguous(), known.detach().contiguous(),
+                                     feats.contiguous(), float(eps))

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models.gdanet import BLOCKS as GDANET_BLOCKS
+from ..nn.blocks import _parse_style
 
 # models whose flax tree keeps the AdaPoinTr core under ``core`` beside
 # their image encoder and / or GDANet (imgadapointr_tpu/models/*_adapointr.py)
@@ -41,7 +42,7 @@ BRANCH_MODELS = {  # name: (image branch, segmentation branch)
 
 def _mapping(config) -> list:
     """[(torch key, kind, flax path or paths, kernel dims)] for the AdaPoinTr
-    tree with graph / attn block tokens and the fc head, and for the image
+    tree with any block tokens and the fc head, and for the image
     and segmentation models built on it (:data:`BRANCH_MODELS`). kind:
     'linear' (kernel, transposed), 'concat' (ConcatDense parts stacked),
     'stack' (several kernels, each transposed, stacked by rows: a packed
@@ -97,23 +98,31 @@ def _mapping(config) -> list:
 
     qkv_bias = bool(enc.get("qkv_bias", True))
 
-    def tokens(style):
-        ts = style.split("-")
-        for t in ts:
-            if t not in ("attn", "graph"):
-                raise NotImplementedError(f"block token {t!r} has no port yet")
-        return "attn" in ts, "graph" in ts
+    def local(tp, fp, token):
+        """A local block token's parameters (convert_torch.py:236-255); the
+        'deform_graph' module's ``proj_v_off`` always has a bias."""
+        if token == "graph":
+            linear(f"{tp}.knn_map.0", fp + ("knn_map",))
+            return
+        for mname in ("proj_q", "proj_k", "proj_v", "proj_v_off"):
+            if token != "deform_graph" or mname == "proj_v_off":
+                linear(f"{tp}.{mname}", fp + (mname,), bias=qkv_bias or token == "deform_graph")
+        linear(f"{tp}.linear_offset.0", fp + ("linear_offset", "Dense_0"))
+        norm(f"{tp}.linear_offset.1", fp + ("linear_offset", "LayerNorm_0"))
+        linear(f"{tp}.linear_offset.3", fp + ("linear_offset", "Dense_1"), bias=False)
+        linear(f"{tp}.knn_map.0" if token == "deform_graph" else f"{tp}.proj",
+               fp + ("knn_map" if token == "deform_graph" else "proj",))
 
     for i, style in enumerate(enc.block_style_list):
         tp, fp = f"base_model.encoder.blocks.blocks.{i}", bm + ("encoder", f"block{i}")
-        has_attn, has_graph = tokens(style)
+        has_attn, loc = _parse_style(style)
         norm(f"{tp}.norm1", fp + ("norm1",))
         norm(f"{tp}.norm2", fp + ("norm2",))
         if has_attn:
             linear(f"{tp}.attn.qkv", fp + ("attn", "qkv"), bias=qkv_bias)
             linear(f"{tp}.attn.proj", fp + ("attn", "proj"))
-        if has_graph:
-            linear(f"{tp}.local_attn.knn_map.0", fp + ("local_attn", "knn_map"))
+        if loc:
+            local(f"{tp}.local_attn", fp + ("local_attn",), loc)
             if has_attn:
                 linear(f"{tp}.merge_map", fp + ("merge_map",))
         linear(f"{tp}.mlp.fc1", fp + ("mlp", "fc1"))
@@ -124,21 +133,21 @@ def _mapping(config) -> list:
         tp, fp = f"base_model.decoder.blocks.blocks.{i}", bm + ("decoder", f"block{i}")
         for n in ("norm1", "norm2", "norm_q", "norm_v"):
             norm(f"{tp}.{n}", fp + (n,))
-        sa_attn, sa_graph = tokens(sa)
-        ca_attn, ca_graph = tokens(ca)
+        sa_attn, sa_loc = _parse_style(sa)
+        ca_attn, ca_loc = _parse_style(ca)
         if sa_attn:
             linear(f"{tp}.self_attn.qkv", fp + ("self_attn", "qkv"), bias=qkv_bias)
             linear(f"{tp}.self_attn.proj", fp + ("self_attn", "proj"))
-        if sa_graph:
-            linear(f"{tp}.local_self_attn.knn_map.0", fp + ("local_self_attn", "knn_map"))
+        if sa_loc:
+            local(f"{tp}.local_self_attn", fp + ("local_self_attn",), sa_loc)
             if sa_attn:
                 linear(f"{tp}.self_attn_merge_map", fp + ("self_attn_merge_map",))
         if ca_attn:
             for mname in ("q_map", "k_map", "v_map"):
                 linear(f"{tp}.cross_attn.{mname}", fp + ("cross_attn", mname), bias=qkv_bias)
             linear(f"{tp}.cross_attn.proj", fp + ("cross_attn", "proj"))
-        if ca_graph:
-            linear(f"{tp}.local_cross_attn.knn_map.0", fp + ("local_cross_attn", "knn_map"))
+        if ca_loc:
+            local(f"{tp}.local_cross_attn", fp + ("local_cross_attn",), ca_loc)
             if ca_attn:
                 linear(f"{tp}.cross_attn_merge_map", fp + ("cross_attn_merge_map",))
         linear(f"{tp}.mlp.fc1", fp + ("mlp", "fc1"))
@@ -266,7 +275,8 @@ def adamw_state_from_optax(mu, nu, count: int, config, model, optimizer) -> dict
     unused encoder norm) get no state, as torch keeps none for them; the
     frozen GDANet of the segmentation models (``segmentator``, zero
     moments in optax) is in no parameter group of the port's AdamW and
-    gets none either."""
+    gets none either; nor do the deformable blocks' ``linear_offset`` and
+    ``proj_v_off``, which get no gradient (``ZERO_GRAD_PARAM_MARKERS``)."""
     from .builder import ZERO_GRAD_PARAM_MARKERS
 
     exp_avg = _params_from_flax(mu, config)

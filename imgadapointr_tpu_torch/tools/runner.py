@@ -121,13 +121,16 @@ class Runner:
         """(B, 9) rows: EVAL_KEYS, then the reference's Metrics row. At
         batch size 1 its CDs drop zero-padded rows (the reference's
         ``ignore_zeros`` engages only there), which takes the masked
-        nearest-neighbour path; the F-Score is the eval suite's; EMD x1000
-        is the auction's (eps 0.005, 100 iterations), 0 unless
+        nearest-neighbour path; the F-Score is always recomputed by the
+        exact pass (the eval suite may have selected by the opt-in
+        matmul-form kernel, whose band could move hits across the
+        threshold; the JAX runner recomputes it only then); EMD x1000 is
+        the auction's (eps 0.005, 100 iterations), 0 unless
         ``require_emd``."""
         batch = self._to_device(batch)
         rows, (_, dense) = self._eval_core(batch)
         vals = compute_metrics(dense, batch["gt"], require_emd=require_emd,
-                               ignore_zeros=dense.shape[0] == 1, f_value=rows[:, 4].mean())
+                               ignore_zeros=dense.shape[0] == 1)
         protocol = torch.stack([v.to(rows.dtype) for v in vals]).expand(rows.shape[0], -1)
         return torch.cat([rows, protocol], dim=1).double().cpu().numpy()
 

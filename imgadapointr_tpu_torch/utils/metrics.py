@@ -1,10 +1,12 @@
 """Evaluation metrics: CD-L1, CD-L2 (both x1000) and F-Score@0.01.
 
-Counterpart of ``imgadapointr_tpu/utils/metrics.py``. All three come
-from one bidirectional nearest-neighbour pass (:func:`ops.nn_distance_eval`);
-:func:`compute_metrics` is the test protocol's table row, whose CDs can
-drop zero-padded rows, with the auction EMD (:func:`ops.emd_distance_metric`)
-where it is asked for.
+Counterpart of ``imgadapointr_tpu/utils/metrics.py``.
+:func:`eval_metric_suite` takes all three from one bidirectional
+nearest-neighbour pass (:func:`ops.nn_distance_eval`, which may select by
+the opt-in matmul-form kernel); :func:`f_score` alone always takes the exact
+:func:`ops.nn_distance`. :func:`compute_metrics` is the test protocol's
+table row, whose CDs can drop zero-padded rows, with the auction EMD
+(:func:`ops.emd_distance_metric`) where it is asked for.
 """
 
 from __future__ import annotations
@@ -26,23 +28,35 @@ def _nonzero_mask(cloud: torch.Tensor) -> torch.Tensor:
     return (cloud.sum(dim=-1) != 0).to(cloud.dtype)
 
 
-def _f_from_hits(s1: torch.Tensor, s2: torch.Tensor, th: float) -> torch.Tensor:
-    # hit rates in float32 whatever the distances' type, as the JAX package
-    # counts them (metrics.py:59, :90)
-    precision = (s1 < th).float().mean(dim=1)
-    recall = (s2 < th).float().mean(dim=1)
+def _f_from_rates(precision: torch.Tensor, recall: torch.Tensor) -> torch.Tensor:
     denom = precision + recall
     f = 2.0 * precision * recall / denom.clamp_min(1e-12)
     return torch.where(denom > 0, f, torch.zeros_like(f))
 
 
+def _hit_rate(dist: torch.Tensor, th: float, w: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-sample share of ``dist`` below ``th`` (of the rows ``w`` marks
+    valid), in float32 whatever the distances' type, as the JAX package
+    counts them (metrics.py:58-62, :90)."""
+    hits = (dist < th).float()
+    if w is None:
+        return hits.mean(dim=1)
+    w = w.float()
+    return (hits * w).sum(dim=1) / w.sum(dim=1).clamp_min(1.0)
+
+
 def f_score(pred: torch.Tensor, gt: torch.Tensor, th: float = 0.01,
+            w_pred: torch.Tensor | None = None, w_gt: torch.Tensor | None = None,
             reduce: bool = True) -> torch.Tensor:
-    """what3d F-Score@th: precision = mean(d(pred->gt) < th), recall =
-    mean(d(gt->pred) < th), F = 2PR/(P+R). Batch mean, or per sample (B,)
-    with ``reduce=False``."""
-    d1, d2, _, _ = nn_distance_eval(pred, gt)
-    f = _f_from_hits(d1.clamp_min(0.0).sqrt(), d2.clamp_min(0.0).sqrt(), th)
+    """what3d F-Score@th: precision = share of pred with d(pred->gt) < th,
+    recall = share of gt with d(gt->pred) < th, F = 2PR/(P+R), from the
+    exact :func:`ops.nn_distance` (never the opt-in selection of
+    :func:`ops.nn_distance_eval`). The optional (B, N) / (B, M) masks drop
+    rows from the hit counts and from the neighbour candidates. Batch mean,
+    or per sample (B,) with ``reduce=False``."""
+    d1, d2, _, _ = nn_distance(pred.detach(), gt.detach(), w_pred, w_gt)
+    f = _f_from_rates(_hit_rate(d1.clamp_min(0.0).sqrt(), th, w_pred),
+                      _hit_rate(d2.clamp_min(0.0).sqrt(), th, w_gt))
     return f.mean() if reduce else f
 
 
@@ -55,29 +69,28 @@ def eval_metric_suite(pred: torch.Tensor, gt: torch.Tensor, th: float = 0.01,
     s2 = torch.sqrt(d2.clamp_min(1e-24))
     cd_l1 = (s1.mean(dim=1) + s2.mean(dim=1)) / 2.0 * 1000.0
     cd_l2 = (d1.mean(dim=1) + d2.mean(dim=1)) * 1000.0
-    f = _f_from_hits(s1, s2, th)
+    f = _f_from_rates(_hit_rate(s1, th), _hit_rate(s2, th))
     if reduce:
         return f.mean(), cd_l1.mean(), cd_l2.mean()
     return f, cd_l1, cd_l2
 
 
 def compute_metrics(pred: torch.Tensor, gt: torch.Tensor, require_emd: bool = False,
-                    ignore_zeros: bool = False, f_value: torch.Tensor | None = None):
+                    ignore_zeros: bool = False):
     """[F-Score, CDL1 x1000, CDL2 x1000, EMD x1000] of the test protocol
     (``imgadapointr_tpu/utils/metrics.py:99-144``); EMD is 0 unless
     ``require_emd``.
 
     ``ignore_zeros`` drops zero-padded rows of either cloud from the CD
     means and from the neighbour candidates, as the reference's eval
-    objects do at batch size 1; the F-Score and EMD never strip zeros.
-    ``f_value`` is a precomputed F-Score of (pred, gt) from
-    :func:`eval_metric_suite`, which saves a second unmasked pass."""
+    objects do at batch size 1; the F-Score (the exact :func:`f_score`)
+    and EMD never strip zeros."""
     w_pred = _nonzero_mask(pred) if ignore_zeros else None
     w_gt = _nonzero_mask(gt) if ignore_zeros else None
     d1, d2, _, _ = nn_distance(pred.detach(), gt.detach(), w_pred, w_gt)
     cd_l1 = (_masked_mean(_sqrt_floor(d1), w_pred) + _masked_mean(_sqrt_floor(d2), w_gt)) / 2.0
     cd_l2 = _masked_mean(d1, w_pred) + _masked_mean(d2, w_gt)
-    f = f_score(pred, gt) if f_value is None else f_value
+    f = f_score(pred, gt)
     emd = emd_distance_metric(pred, gt) * 1000.0 if require_emd else torch.zeros_like(cd_l1)
     return [f, cd_l1 * 1000.0, cd_l2 * 1000.0, emd.to(cd_l1.dtype)]
 

@@ -1,4 +1,4 @@
-"""The port's ten CUDA kernels against their plain PyTorch versions.
+"""The port's twelve CUDA kernels against their plain PyTorch versions.
 
 These need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 ``imgadapointr_tpu_torch/csrc`` at first use); elsewhere each test skips
@@ -305,3 +305,74 @@ def test_auction_top2_kernel_equals_plain(dev, B, N, M):
         c = int(cnt[b])
         for a, w_ in zip(got, want):
             assert torch.equal(a[b, :c], w_[b, :c])
+
+
+@pytest.mark.parametrize("B,N,M,C", [(16, 2048, 256, 192), (32, 4608, 576, 192), (16, 4096, 512, 384),
+                                     (2, 100, 3, 5), (3, 77, 1500, 7)])
+def test_three_nn_interpolate_kernel_equals_plain(dev, B, N, M, C):
+    """Indices equal, weights and outputs bit-equal (the kernel repeats the
+    plain version's roundings in its order), at the deformable blocks'
+    shapes and at ragged ones (M = 3; C not a multiple of 4; M past one
+    shared-memory tile)."""
+    g = torch.Generator().manual_seed(N + M + C)
+    u, k, f = _cloud(g, B, N, 3, device=dev), _cloud(g, B, M, 3, device=dev), _cloud(g, B, M, C, device=dev)
+    out, idx, w = _launched("three_nn_interpolate", lambda: ops.pointops._three_nn_interpolate_forward(
+        u, k, f, 1e-8))
+    pout, pidx, pw = ops.three_nn_interpolate_plain(u, k, f)
+    assert torch.equal(idx, pidx)
+    assert torch.equal(w, pw) and torch.equal(out, pout)
+
+
+def test_three_nn_interpolate_kernel_edges_and_backward(dev):
+    g = torch.Generator().manual_seed(5)
+    known = _cloud(g, 2, 576, 3, device=dev)
+    feats = _cloud(g, 2, 576, 192, device=dev)
+    # queries on known points (d = 0, weight about 1) and duplicated known points
+    dup = torch.cat([known, known], dim=1)
+    for kn, fe in ((known, feats), (dup, torch.cat([feats, feats], dim=1))):
+        got = ops.pointops._three_nn_interpolate_forward(known[:, :100].contiguous(), kn, fe, 1e-8)
+        want = ops.three_nn_interpolate_plain(known[:, :100], kn, fe)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert bool((got[2][..., 0] > 0.49).all())  # two copies at distance 0 share the weight
+    # the public entry takes non-contiguous inputs; its backward is the dfeats kernel
+    f = feats.transpose(1, 2).contiguous().transpose(1, 2).requires_grad_()
+    before = _build.launches()["weighted_gather_sum_dfeats"]
+    out = ops.three_nn_interpolate(known[:, ::2], known, f)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(6)).to(dev)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert _build.launches()["weighted_gather_sum_dfeats"] == before + 1
+    _, idx, w = ops.three_nn_interpolate_plain(known[:, ::2], known, feats)
+    want = ops.weighted_gather_sum_dfeats_plain(w, idx, cot, 576)
+    room = 1e-5 * ops.weighted_gather_sum_dfeats_plain(w, idx, cot.abs(), 576)
+    assert bool(((f.grad - want).abs() <= room).all())
+    with pytest.raises(ValueError, match="at least 3"):
+        ops.three_nn_interpolate(known, known[:, :2], feats[:, :2])
+    with pytest.raises(TypeError):
+        ops.pointops._three_nn_interpolate_forward(known.double(), known.double(), feats.double(), 1e-8)
+
+
+@pytest.mark.parametrize("kind,B,N,M", [("sphere", 2, 16384, 16384), ("random", 2, 300, 4000),
+                                        ("random", 1, 5, 3), ("sphere", 3, 1000, 999)])
+def test_nn_bidir_mxu_kernel_equals_plain(dev, kind, B, N, M):
+    g = torch.Generator().manual_seed(N + M)
+    if kind == "sphere":
+        x, y = _sphere(g, B, N, dev), _sphere(g, B, M, dev)
+    else:
+        x, y = _cloud(g, B, N, 3, device=dev), _cloud(g, B, M, 3, device=dev)
+    i1, i2 = _launched("nn_bidir_mxu", lambda: ops.nn_argmin_bidir_mxu(x, y))
+    p1, p2 = ops.nn_argmin_bidir_mxu_plain(x, y)
+    assert torch.equal(i1, p1) and torch.equal(i2, p2)
+
+
+def test_eval_entry_takes_the_mxu_kernel_under_the_flag(dev, monkeypatch):
+    g = torch.Generator().manual_seed(3)
+    x, y = _sphere(g, 2, 4096, dev), _sphere(g, 2, 4096, dev)
+    monkeypatch.setenv("IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER", "1")
+    d1, d2, i1, i2 = _launched("nn_bidir_mxu", lambda: ops.nn_distance_eval(x, y))
+    assert torch.equal(i1, ops.nn_argmin_bidir_mxu_plain(x, y)[0])
+    e1, e2, _, _ = ops.nn_distance(x, y)
+    assert float((d1 - e1).abs().max()) < 1e-5 and float((d2 - e2).abs().max()) < 1e-5
+    monkeypatch.delenv("IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER")
+    _launched("nn_bidir_argmin", lambda: ops.nn_distance_eval(x, y))
