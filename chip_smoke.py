@@ -23,7 +23,15 @@ Phases; any failure exits non-zero and prints no result line:
    and, where one PyTorch call computes the same function, that call are
    timed with CUDA events over one serving request's calls (the
    scatter-add: one train step's; the one-direction argmin: one test
-   cloud's; the weighted gather-sum: one superset request's);
+   cloud's; the weighted gather-sum: one superset request's). The row
+   gather and the bidirectional argmin are also timed with the host taken
+   out, by replaying their calls and their library call captured in a
+   CUDA graph, in turns with the host loop on the same card; their ``ms``
+   and ``library_ms`` are the replay times, and the gather prints the host
+   cost of one 1-row call on its direct route and on the route through
+   the autograd Function and ``launch_with_context`` (the launch path as it
+   was before it resolved entries once and skipped the lock and the
+   device context);
 3. the serving path at full width: ``cfgs/PCN_models/AdaPoinTr.yaml`` with
    seeded weights answers ``REQUESTS`` requests of ``B`` synthetic PCN
    partial clouds (2048 points) with coarse (512) and fine (16384)
@@ -117,7 +125,7 @@ from imgadapointr_tpu_torch.main import swap_synthetic
 from imgadapointr_tpu_torch.models import build_model
 from imgadapointr_tpu_torch.models import gdanet as port_gdanet
 from imgadapointr_tpu_torch.nn.blocks import _parse_style
-from imgadapointr_tpu_torch.ops import _build
+from imgadapointr_tpu_torch.ops import _build, pointops
 from imgadapointr_tpu_torch.tools import runner as port_runner
 from imgadapointr_tpu_torch.tools.builder import dataset_builder
 from imgadapointr_tpu_torch.utils.checkpoint import load_checkpoint
@@ -445,6 +453,45 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time in ms of one replay of ``fn`` captured in a CUDA
+    graph (the host's launch cost taken out), over ``reps`` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as capture asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def in_turns(kernel, library, reps=(50, 50)) -> dict:
+    """Graph-replay and host-loop times of ``kernel`` and ``library``, each
+    taken in turns (kernel, library, library, kernel) on one card: the
+    means (kernel, library) of each, and every pair."""
+    out = {}
+    for how, timer in (("graph", graph_ms), ("loop", cuda_ms)):
+        k1 = timer(kernel, reps[0])
+        l1, l2 = timer(library, reps[1]), timer(library, reps[1])
+        k2 = timer(kernel, reps[0])
+        out[how] = ((k1 + k2) / 2, (l1 + l2) / 2)
+        out.setdefault("pairs", {})[how] = [k1, l1, l2, k2]
+    return out
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -503,13 +550,43 @@ def check_fps(calls, extra, g, dev):
     return err, t, n_ops, nbytes
 
 
+def launch_with_context(kernel: str, entry: str, device: torch.device, *args) -> None:
+    """``_build.launch`` as it was before it resolved each C entry once and
+    skipped the lock and the device context, for the host-cost comparison
+    only: the library lock, a device context, a ``torch.cuda.Stream``
+    object and a lookup of the C entry on every call."""
+    with _build._lock:
+        lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {rc}")
+    _build._launches[kernel] += 1
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Mean host time of one ``fn()`` in microseconds: the host clock
+    around ``calls`` calls, started after a synchronise (the enqueue, not
+    the device's work)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def check_gather(calls, extra, g, dev):
     inputs = []
     for b, (M, C, S) in batched(calls, extra):
         table = torch.randn(b, M, C, generator=g).to(dev)
         idx = torch.randint(0, M, (b, S), generator=g).to(dev)
         inputs.append((table, idx))
-    for M, C, S in ((2048, 3, 4096), (512, 64, 8192), (512, 384, 4096)):  # clamp probes
+    for M, C, S in ((2048, 3, 4096), (512, 64, 8192), (512, 384, 4096), (777, 5, 3000)):  # clamp probes
         table = torch.randn(B, M, C, generator=g).to(dev)
         idx = torch.randint(-4, M + 4, (B, S), generator=g).to(dev)
         idx[:, :3] = torch.tensor([-1, M, M + 10**6])
@@ -517,6 +594,11 @@ def check_gather(calls, extra, g, dev):
         require(torch.equal(got, ops.gather_rows_plain(table, idx)), f"gather clamp C={C}: differs")
         require(torch.equal(got[:, 0], table[:, 0]) and torch.equal(got[:, 2], table[:, M - 1]),
                 f"gather clamp C={C}: out-of-range rows not clamped")
+        # a contiguous view one float in: no 16-byte words
+        flat = torch.randn(B * M * C + 1, generator=g).to(dev)
+        view = flat[1:].view(B, M, C)
+        require(torch.equal(ops.gather_rows(view, idx), ops.gather_rows_plain(view, idx)),
+                f"gather unaligned C={C}: differs")
     err = 0.0
     for table, idx in inputs:
         got = ops.gather_rows(table, idx)
@@ -524,11 +606,27 @@ def check_gather(calls, extra, g, dev):
         require(err == 0.0, f"gather {tuple(table.shape)} S={idx.shape[1]}: values differ")
     inputs = inputs[:len(calls)]
     rows = [torch.arange(B, device=dev)[:, None] for _ in inputs]
-    t = {
-        "ms": cuda_ms(lambda: [ops.gather_rows(tb, i) for tb, i in inputs], 50),
-        "plain_ms": cuda_ms(lambda: [ops.gather_rows_plain(tb, i) for tb, i in inputs], 50),
-        "library_ms": cuda_ms(lambda: [tb[r, i] for (tb, i), r in zip(inputs, rows)], 50),
-    }
+    kernel = lambda: [ops.gather_rows(tb, i) for tb, i in inputs]  # noqa: E731
+    library = lambda: [tb[r, i] for (tb, i), r in zip(inputs, rows)]  # noqa: E731
+    turns = in_turns(kernel, library)
+    t = {"ms": turns["graph"][0], "plain_ms": cuda_ms(lambda: [ops.gather_rows_plain(tb, i) for tb, i in inputs], 50),
+         "library_ms": turns["graph"][1], "loop_ms": turns["loop"][0], "library_loop_ms": turns["loop"][1]}
+    # the host's cost of one call: a 1-row gather through the autograd
+    # Function and launch_with_context, against the direct route
+    table, idx = inputs[0][0][:1].contiguous(), inputs[0][1][:1, :1].contiguous()
+    r1 = torch.zeros(1, 1, dtype=torch.int64, device=dev)
+    saved = _build.launch
+    _build.launch = launch_with_context
+    try:
+        before = host_us(lambda: pointops._GatherRows.apply(table, idx))
+    finally:
+        _build.launch = saved
+    t["host_us"] = {"function_and_context": before, "direct": host_us(lambda: ops.gather_rows(table, idx)),
+                    "indexing": host_us(lambda: table[r1, idx])}
+    log(f"phase 2: gather_rows, {len(inputs)} calls of one request, in turns: graph replay "
+        f"{turns['graph'][0]:.4f} ms (indexing {turns['graph'][1]:.4f} ms), host loop "
+        f"{turns['loop'][0]:.4f} ms (indexing {turns['loop'][1]:.4f} ms); each pair "
+        f"{json.dumps(turns['pairs'])}; host cost of one 1-row call: {json.dumps(t['host_us'])} us")
     nbytes = 0
     for table, idx in inputs:  # each row the indices name read once; indices read, rows written
         rows = sum(torch.unique(ix).numel() for ix in idx)
@@ -549,21 +647,37 @@ def check_bidir(calls, extra, g, dev):
     i1, i2 = ops.nn_bidir_argmin(s1, s2)
     p1, p2 = ops.nn_bidir_argmin_plain(s1, s2)
     require(torch.equal(i1, p1) and torch.equal(i2, p2), "nn_bidir_argmin sphere: indices differ")
+    # N != M, neither a multiple of a tile, one test cloud's batch
+    r1, r2 = sphere(g, 1, 4097, dev), sphere(g, 1, M - 1, dev)
+    i1, i2 = ops.nn_bidir_argmin(r1, r2)
+    p1, p2 = ops.nn_bidir_argmin_plain(r1, r2)
+    require(torch.equal(i1, p1) and torch.equal(i2, p2), "nn_bidir_argmin 4097 x 16383: indices differ")
+    require(torch.equal(i1, ops.nn_one_direction(r1, r2)) and torch.equal(i2, ops.nn_one_direction(r2, r1)),
+            "nn_bidir_argmin and nn_one_direction select differently")
+    # exact ties: every point of each cloud three times over, in another order
+    base = torch.randn(2, 3000, 3, generator=g)
+    t1 = base.repeat(1, 3, 1)[:, torch.randperm(9000, generator=g)].contiguous().to(dev)
+    t2 = base.repeat(1, 3, 1)[:, torch.randperm(9000, generator=g)].contiguous().to(dev)
+    i1, i2 = ops.nn_bidir_argmin(t1, t2)
+    p1, p2 = ops.nn_bidir_argmin_plain(t1, t2)
+    require(torch.equal(i1, p1) and torch.equal(i2, p2), "nn_bidir_argmin ties: indices differ")
     same = torch.randn(2, N, 3, generator=g).to(dev)
     i1, i2 = ops.nn_bidir_argmin(same, same.clone())
     ident = torch.arange(N, device=dev).expand(2, N)
     require(torch.equal(i1, ident) and torch.equal(i2, ident), "identical clouds: argmin is not the identity")
     cd = float(ops.chamfer_l1(same, same.clone()))
     require(cd < 1e-9, f"identical clouds: CD-L1 {cd}")
+
     def library():  # one distance matrix, its argmin along both axes
         d = torch.cdist(x, y)
         return d.argmin(-1), d.argmin(1)
 
-    t = {
-        "ms": cuda_ms(lambda: ops.nn_bidir_argmin(x, y), 10),
-        "plain_ms": cuda_ms(lambda: ops.nn_bidir_argmin_plain(x, y), 1),
-        "library_ms": cuda_ms(library, 5),
-    }
+    turns = in_turns(lambda: ops.nn_bidir_argmin(x, y), library, reps=(10, 3))
+    t = {"ms": turns["graph"][0], "plain_ms": cuda_ms(lambda: ops.nn_bidir_argmin_plain(x, y), 1),
+         "library_ms": turns["graph"][1], "loop_ms": turns["loop"][0], "library_loop_ms": turns["loop"][1]}
+    log(f"phase 2: nn_bidir_argmin at {B}x{N}x{M}, in turns: graph replay {turns['graph'][0]:.4f} ms "
+        f"(cdist + argmins {turns['graph'][1]:.4f} ms), host loop {turns['loop'][0]:.4f} ms "
+        f"({turns['loop'][1]:.4f} ms); each pair {json.dumps(turns['pairs'])}")
     return err, t, B * N * M * OPS_PAIR_BIDIR, B * (N + M) * 12 + B * (N + M) * 8
 
 
@@ -1688,6 +1802,8 @@ def main(argv=None) -> int:
             "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
             "library_ms": t["library_ms"],
+            # the two kernels timed by graph replay: their host-loop times too
+            **{k: t[k] for k in ("loop_ms", "library_loop_ms", "host_us") if k in t},
         })
         if name in NOT_ON_A_PATH:
             require(kernels[-1]["launches"] == 0, f"{name}: launched on a path the tables say it is not on")

@@ -9,33 +9,80 @@
 // (C = 384, graph attention) included.
 //
 // Bound on the H100: bytes. Each output element is one load and one store;
-// there is no arithmetic to speak of. The design moves 16 bytes per thread
-// (float4) whenever the row width and both base pointers allow it, so
-// neighbouring threads touch neighbouring 16-byte words of one row, and
-// falls back to one float per thread otherwise (C = 3). Indices are clamped
-// exactly as XLA's gather clamps them, so sentinel-index callers behave the
-// same as on the TPU.
+// there is no arithmetic to speak of. Design: a row belongs to a group of L
+// lanes (L a power of two sized to the row: one thread for rows of fewer
+// than four words, such as C = 3, up to a warp for C = 384). Lane 0 loads
+// and clamps the row's index once and hands it to the group by a shuffle;
+// the batch is blockIdx.y, so a row's offsets are two multiplies and the
+// copy loop has no division or modulo. Words are 16 bytes (float4) whenever
+// the row width is a multiple of 4 and both base pointers are 16-byte
+// aligned, so a warp's lanes touch neighbouring 16-byte words of a row;
+// otherwise words are single floats. Indices are clamped exactly as XLA's
+// gather clamps them, so sentinel-index callers behave the same as on the
+// TPU.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-template <typename T>
-__global__ void gather_rows_kernel(const T* __restrict__ table,
-                                   const int64_t* __restrict__ idx,
-                                   T* __restrict__ out, int64_t S, int64_t M,
-                                   int64_t width, int64_t total) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += stride) {
-    const int64_t row = t / width;  // flat (b, s)
-    const int64_t c = t - row * width;
-    const int64_t b = row / S;
-    int64_t m = idx[row];
-    m = m < 0 ? 0 : (m >= M ? M - 1 : m);
-    out[t] = table[(b * M + m) * width + c];
+constexpr int kThreads = 256;
+
+// T the word (float or float4), W words a row, L lanes a row.
+template <typename T, int L>
+__global__ void __launch_bounds__(kThreads)
+    gather_rows_kernel(const T* __restrict__ table,
+                       const int64_t* __restrict__ idx, T* __restrict__ out,
+                       int S, int M, int W) {
+  constexpr int kRows = kThreads / L;  // rows a block
+  const int lane = threadIdx.x & (L - 1);
+  const int s = blockIdx.x * kRows + threadIdx.x / L;
+  const int64_t row = (int64_t)blockIdx.y * S + s;
+  int m = 0;
+  if (lane == 0 && s < S) {
+    const int64_t v = __ldg(idx + row);
+    m = v < 0 ? 0 : (v >= M ? M - 1 : (int)v);
   }
+  if (L > 1) m = __shfl_sync(0xffffffffu, m, 0, L);  // groups never straddle a warp
+  if (s >= S) return;
+  const T* __restrict__ src = table + ((int64_t)blockIdx.y * M + m) * W;
+  T* __restrict__ dst = out + row * W;
+  for (int c = lane; c < W; c += L) dst[c] = __ldg(src + c);
+}
+
+// Lanes a row: one thread for rows of fewer than 4 words, else the largest
+// power of two up to 32 that does not exceed the row.
+int lanes_for(int64_t words) {
+  if (words < 4) return 1;
+  int l = 4;
+  while (l < 32 && 2 * l <= words) l *= 2;
+  return l;
+}
+
+template <typename T>
+cudaError_t launch_gather(const T* table, const int64_t* idx, T* out,
+                          int64_t B, int64_t M, int64_t S, int64_t W,
+                          cudaStream_t stream) {
+  const int L = lanes_for(W);
+  const int rows = kThreads / L;
+  const dim3 grid((unsigned)((S + rows - 1) / rows), (unsigned)B);
+  switch (L) {
+    case 1:
+      gather_rows_kernel<T, 1><<<grid, kThreads, 0, stream>>>(table, idx, out, (int)S, (int)M, (int)W);
+      break;
+    case 4:
+      gather_rows_kernel<T, 4><<<grid, kThreads, 0, stream>>>(table, idx, out, (int)S, (int)M, (int)W);
+      break;
+    case 8:
+      gather_rows_kernel<T, 8><<<grid, kThreads, 0, stream>>>(table, idx, out, (int)S, (int)M, (int)W);
+      break;
+    case 16:
+      gather_rows_kernel<T, 16><<<grid, kThreads, 0, stream>>>(table, idx, out, (int)S, (int)M, (int)W);
+      break;
+    default:
+      gather_rows_kernel<T, 32><<<grid, kThreads, 0, stream>>>(table, idx, out, (int)S, (int)M, (int)W);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -43,28 +90,19 @@ __global__ void gather_rows_kernel(const T* __restrict__ table,
 extern "C" int gather_rows_f32(const float* table, const int64_t* idx,
                                float* out, int64_t B, int64_t M, int64_t S,
                                int64_t C, void* stream) {
-  const int64_t rows = B * S;
-  if (rows == 0 || C == 0) return 0;
+  if (B == 0 || S == 0 || C == 0) return 0;
+  if (B > 65535 || S > INT32_MAX || M > INT32_MAX || C > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec4 =
       (C % 4 == 0) &&
       ((reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(out)) %
            16 ==
        0);
-  const int64_t width = vec4 ? C / 4 : C;
-  const int64_t total = rows * width;
-  const int threads = 256;
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride covers the rest
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    gather_rows_kernel<float4><<<(unsigned)blocks, threads, 0, s>>>(
-        reinterpret_cast<const float4*>(table), idx,
-        reinterpret_cast<float4*>(out), S, M, width, total);
-  } else {
-    gather_rows_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(
-        table, idx, out, S, M, width, total);
-  }
-  return (int)cudaGetLastError();
+  if (vec4)
+    return (int)launch_gather(reinterpret_cast<const float4*>(table), idx,
+                              reinterpret_cast<float4*>(out), B, M, S, C / 4, st);
+  return (int)launch_gather(table, idx, out, B, M, S, C, st);
 }
 
 extern "C" const char* kernels_error_string(int code) {

@@ -1,7 +1,7 @@
-// One nearest-neighbour argmin pass by diff-form squared distance, shared by
-// nn_bidir_argmin.cu (two passes, x and y swapped) and nn_one_direction.cu
-// (one pass, optional validity mask). Because both kernels run this same
-// code, they select the same index on the same clouds.
+// One nearest-neighbour argmin pass by diff-form squared distance, with an
+// optional validity mask, for nn_one_direction.cu. It computes the same
+// distance bits as nn_bidir_argmin.cu and keeps the same first index on
+// ties, so both kernels select the same index on the same clouds.
 //
 // Selection precision is gradient quality
 // (imgadapointr_tpu/ops/pallas/nn_distance.py:17-24): the distance is

@@ -13,8 +13,8 @@
 //
 // Bound on the H100: operations. B*N*M pairs, each 9 operations (3
 // subtracts, 3 multiplies, 2 adds, one compare); the clouds are a few MB.
-// Design: the pass of nn_argmin.cuh, the same device code as
-// nn_bidir_argmin.cu, so both kernels select the same index on the same
+// Design: the pass of nn_argmin.cuh, whose distance bits and tie rule are
+// nn_bidir_argmin.cu's, so both kernels select the same index on the same
 // clouds. Cloud sizes are ints: no cap below 2^31 points.
 
 #include <cuda_runtime.h>

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "gather_rows_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "knn_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "fps_f32": [_P, _P, _I64, _I64, _I64, _P],
-    "nn_bidir_argmin_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "nn_bidir_argmin_f32": [_P, _P, _P, _I64, _I64, _I64, _P],
     "scatter_add_rows_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "nn_one_direction_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "weighted_gather_sum_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
@@ -61,6 +61,8 @@ _launches = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# C entry point -> its ctypes function, filled when the library loads
+_entries: dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
@@ -139,32 +141,45 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use. The lock is taken
+    only until the library has loaded."""
     global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.kernels_error_string.argtypes = [ctypes.c_int]
-            lib.kernels_error_string.restype = ctypes.c_char_p
-            lib.fps_max_points.argtypes = []
-            lib.fps_max_points.restype = ctypes.c_int64
-            _lib = lib
-        return _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.kernels_error_string.argtypes = [ctypes.c_int]
+                lib.kernels_error_string.restype = ctypes.c_char_p
+                lib.fps_max_points.argtypes = []
+                lib.fps_max_points.restype = ctypes.c_int64
+                _lib = lib
+                _entries.update((name, getattr(lib, name)) for name in _SIGNATURES)
+    return _lib
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     """Call C entry ``entry`` on ``device``'s current stream; raise on a
-    CUDA error and count one launch of ``kernel``."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
+    CUDA error and count one launch of ``kernel``. Each entry is resolved
+    once, when the library loads; a device context is entered only when
+    ``device`` is not the current device."""
+    fn = _entries.get(entry)
+    if fn is None:
+        library()
+        fn = _entries[entry]
+    # the raw handle of the current stream, without building a
+    # torch.cuda.Stream object (PyTorch's compiler reads it so)
+    index, current = device.index, torch.cuda.current_device()
+    if index is None or index == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        msg = lib.kernels_error_string(rc).decode()
+        msg = _lib.kernels_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")
     _launches[kernel] += 1
 

@@ -66,20 +66,21 @@ def _gather_rows_forward(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
             f"gather_rows: table (B, M, C) and idx (B, S) expected, got "
             f"{tuple(table.shape)} and {tuple(idx.shape)}"
         )
-    if table.shape[1] == 0:
+    B, M, C = table.shape
+    if M == 0:
         raise ValueError("gather_rows: empty table")
     if idx.dtype != torch.int64:
         raise TypeError(f"gather_rows: int64 indices expected, got {idx.dtype}")
     if _on_cpu("gather_rows", table):
         return gather_rows_plain(table, idx)
-    _build.require_cuda_f32("gather_rows", table.device, table)
-    if idx.device != table.device or not idx.is_contiguous():
+    dev = table.device
+    _build.require_cuda_f32("gather_rows", dev, table)
+    if idx.device != dev or not idx.is_contiguous():
         raise ValueError("gather_rows: idx must be contiguous on the table's device")
-    B, M, C = table.shape
     S = idx.shape[1]
-    out = torch.empty(B, S, C, dtype=table.dtype, device=table.device)
+    out = table.new_empty((B, S, C))
     _build.launch(
-        "gather_rows", "gather_rows_f32", table.device,
+        "gather_rows", "gather_rows_f32", dev,
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, M, S, C,
     )
     return out
@@ -109,9 +110,14 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     table (B, M, C), idx (B, S) int64 -> (B, S, C). Out-of-range indices are
     clamped, as XLA's gather and the TPU kernel do (CLAUDE.md:97-99), where
     ``torch.gather`` would raise. Differentiable in ``table``: the backward
-    is :func:`scatter_add_rows`.
+    is :func:`scatter_add_rows`. Where no gradient can flow (grad mode off,
+    or a table that needs none) the forward is called directly, without
+    the autograd Function's cost on the host; both routes launch the same
+    kernel once.
     """
-    return _GatherRows.apply(table, idx)
+    if table.requires_grad and torch.is_grad_enabled():
+        return _GatherRows.apply(table, idx)
+    return _gather_rows_forward(table, idx)
 
 
 # ---------------------------------------------------------- row scatter-add

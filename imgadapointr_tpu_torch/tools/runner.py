@@ -24,7 +24,7 @@ from ..utils.average_meter import AverageMeter
 from ..utils.checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logger import print_log
-from ..utils.metrics import METRIC_NAMES, Metrics, compute_metrics, eval_metric_suite
+from ..utils.metrics import METRIC_NAMES, Metrics, compute_metrics_per_sample, eval_metric_suite
 from .builder import ZERO_GRAD_PARAM_MARKERS, build_opt_sched, dataset_builder
 from .convert import fit_reference_state, load_gdanet_weights, load_reference_state
 
@@ -118,21 +118,21 @@ class Runner:
 
     @torch.inference_mode()
     def test_step(self, batch: dict, require_emd: bool = True) -> np.ndarray:
-        """(B, 9) rows: EVAL_KEYS, then the reference's Metrics row. At
-        batch size 1 its CDs drop zero-padded rows (the reference's
-        ``ignore_zeros`` engages only there), which takes the masked
-        nearest-neighbour path; the F-Score is always recomputed by the
+        """(B, 9) per-sample rows: EVAL_KEYS, then the reference's Metrics
+        row (``compute_metrics_per_sample``). Each row is one batch-1 test
+        evaluation: its CDs drop that sample's zero-padded rows (the
+        reference's ``ignore_zeros``), which takes the masked
+        nearest-neighbour path; its F-Score is always recomputed by the
         exact pass (the eval suite may have selected by the opt-in
         matmul-form kernel, whose band could move hits across the
-        threshold; the JAX runner recomputes it only then); EMD x1000 is
-        the auction's (eps 0.005, 100 iterations), 0 unless
+        threshold; the JAX runner recomputes it only then); its EMD x1000
+        is the auction's (eps 0.005, 100 iterations), 0 unless
         ``require_emd``."""
         batch = self._to_device(batch)
         rows, (_, dense) = self._eval_core(batch)
-        vals = compute_metrics(dense, batch["gt"], require_emd=require_emd,
-                               ignore_zeros=dense.shape[0] == 1)
-        protocol = torch.stack([v.to(rows.dtype) for v in vals]).expand(rows.shape[0], -1)
-        return torch.cat([rows, protocol], dim=1).double().cpu().numpy()
+        protocol = compute_metrics_per_sample(dense, batch["gt"], require_emd=require_emd,
+                                              ignore_zeros=True)
+        return torch.cat([rows, protocol.to(rows.dtype)], dim=1).double().cpu().numpy()
 
     # ------------------------------------------------------------- checkpoints
     def save(self, prefix: str, epoch: int, metrics, best_metrics) -> str:

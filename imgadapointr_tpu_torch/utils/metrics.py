@@ -6,14 +6,15 @@ nearest-neighbour pass (:func:`ops.nn_distance_eval`, which may select by
 the opt-in matmul-form kernel); :func:`f_score` alone always takes the exact
 :func:`ops.nn_distance`. :func:`compute_metrics` is the test protocol's
 table row, whose CDs can drop zero-padded rows, with the auction EMD
-(:func:`ops.emd_distance_metric`) where it is asked for.
+(:func:`ops.emd_distance_metric`) where it is asked for;
+:func:`compute_metrics_per_sample` gives one such row per sample.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import emd_distance_metric, nn_distance, nn_distance_eval
+from ..ops import emd_auction, emd_distance_metric, nn_distance, nn_distance_eval
 from ..ops.chamfer import _masked_mean, _sqrt_floor
 
 METRIC_NAMES = ["F-Score", "CDL1", "CDL2", "EMDistance"]
@@ -93,6 +94,38 @@ def compute_metrics(pred: torch.Tensor, gt: torch.Tensor, require_emd: bool = Fa
     f = f_score(pred, gt)
     emd = emd_distance_metric(pred, gt) * 1000.0 if require_emd else torch.zeros_like(cd_l1)
     return [f, cd_l1 * 1000.0, cd_l2 * 1000.0, emd.to(cd_l1.dtype)]
+
+
+def _per_sample_mean(v: torch.Tensor, w: torch.Tensor | None) -> torch.Tensor:
+    """(B,) mean over each row of ``v`` (B, N), of the entries ``w`` marks
+    valid where given."""
+    if w is None:
+        return v.mean(dim=1)
+    w = w.to(v.dtype)
+    return (v * w).sum(dim=1) / w.sum(dim=1).clamp_min(1.0)
+
+
+def compute_metrics_per_sample(pred: torch.Tensor, gt: torch.Tensor, require_emd: bool = False,
+                               ignore_zeros: bool = False) -> torch.Tensor:
+    """(B, 4) rows [F-Score, CDL1 x1000, CDL2 x1000, EMD x1000]
+    (``imgadapointr_tpu/utils/metrics.py:147-191``): row ``b`` equals
+    ``compute_metrics(pred[b:b+1], gt[b:b+1], ...)``, so each row is one
+    batch-1 evaluation, with its own ``ignore_zeros`` masks. F is the exact
+    per-sample :func:`f_score`; EMD (the auction, eps 0.005, 100
+    iterations) is per sample, 0 unless ``require_emd``."""
+    pred, gt = pred.detach(), gt.detach()
+    w_pred = _nonzero_mask(pred) if ignore_zeros else None
+    w_gt = _nonzero_mask(gt) if ignore_zeros else None
+    d1, d2, _, _ = nn_distance(pred, gt, w_pred, w_gt)
+    cd_l1 = (_per_sample_mean(_sqrt_floor(d1), w_pred) + _per_sample_mean(_sqrt_floor(d2), w_gt)) / 2.0
+    cd_l2 = _per_sample_mean(d1, w_pred) + _per_sample_mean(d2, w_gt)
+    f = f_score(pred, gt, reduce=False).to(cd_l1.dtype)
+    if require_emd:
+        dist, _ = emd_auction(pred, gt, 0.005, 100)
+        emd = dist.clamp_min(0.0).sqrt().mean(dim=1).to(cd_l1.dtype) * 1000.0
+    else:
+        emd = torch.zeros_like(cd_l1)
+    return torch.stack([f, cd_l1 * 1000.0, cd_l2 * 1000.0, emd], dim=1)
 
 
 class Metrics:

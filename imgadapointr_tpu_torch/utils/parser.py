@@ -28,7 +28,7 @@ def get_args(argv=None):
     parser.add_argument("--syn_train_len", type=int, default=None,
                         help="--synthetic train-split length (default $SYN_TRAIN_LEN or 64)")
     parser.add_argument("--no_emd", dest="emd", action="store_false", default=True,
-                        help="skip EMD in --test (it is not ported yet and is always skipped)")
+                        help="skip the auction EMD in --test (on by default; EMDistance then reads 0)")
     parser.add_argument("--gdanet_w", type=str, default=None,
                         help="reference GDANet checkpoint for the segmentation models' frozen GDANet")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")

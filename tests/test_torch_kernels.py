@@ -131,6 +131,73 @@ def test_nn_bidir_kernel_identical_clouds(dev):
     assert float(ops.chamfer_l1(x, x.clone())) < 1e-9
 
 
+@pytest.mark.parametrize("B,N,M", [(1, 4097, 16383), (16, 512, 16384), (16, 16384, 512), (16, 2048, 2048),
+                                   (3, 1, 700), (2, 33, 1)])
+def test_nn_bidir_kernel_one_pass_shapes(dev, B, N, M):
+    """N != M, sizes no tile divides, one point on either side, B = 1 and
+    16: both directions equal to the plain version and to the
+    one-direction kernel."""
+    g = torch.Generator().manual_seed(B * N + M)
+    x, y = _sphere(g, B, N, dev), _sphere(g, B, M, dev)
+    i1, i2 = _launched("nn_bidir_argmin", lambda: ops.nn_bidir_argmin(x, y))
+    assert i1.shape == (B, N) and i2.shape == (B, M) and i1.dtype == i2.dtype == torch.int64
+    p1, p2 = ops.nn_bidir_argmin_plain(x, y)
+    assert torch.equal(i1, p1) and torch.equal(i2, p2)
+    assert torch.equal(i1, ops.nn_one_direction(x, y)) and torch.equal(i2, ops.nn_one_direction(y, x))
+
+
+def test_nn_bidir_kernel_first_index_wins_ties(dev):
+    """Clouds of duplicated points: every distance ties with another, and
+    the first index must win in both directions."""
+    g = torch.Generator().manual_seed(17)
+    base = torch.randn(2, 1500, 3, generator=g)
+    x = base.repeat(1, 3, 1)[:, torch.randperm(4500, generator=g)].contiguous().to(dev)
+    y = torch.cat([base[:, :1000], base[:, 500:], base[:, :700]], dim=1).contiguous().to(dev)
+    i1, i2 = ops.nn_bidir_argmin(x, y)
+    p1, p2 = ops.nn_bidir_argmin_plain(x, y)
+    assert torch.equal(i1, p1) and torch.equal(i2, p2)
+    # an exact match at distance 0: the first copy in the other cloud
+    yi = y.cpu()
+    first = {tuple(v): j for j in reversed(range(yi.shape[1])) for v in [yi[0, j].tolist()]}
+    assert [first[tuple(v)] for v in x[0].cpu().tolist()] == i1[0].cpu().tolist()
+    xi = x.cpu()
+    first = {tuple(v): j for j in reversed(range(xi.shape[1])) for v in [xi[0, j].tolist()]}
+    assert [first[tuple(v)] for v in y[0].cpu().tolist()] == i2[0].cpu().tolist()
+
+
+@pytest.mark.parametrize("C", [3, 5, 8, 32, 64, 384])
+def test_gather_kernel_widths_aligned_and_not(dev, C):
+    """Every row width, from a 16-byte aligned table and from a contiguous
+    view that starts one float in (the kernel then moves single floats),
+    with out-of-range indices clamped."""
+    g = torch.Generator().manual_seed(C)
+    B, M, S = 3, 1000, 5000
+    flat = _cloud(g, B * M * C + 1, device=dev)
+    idx = torch.randint(-5, M + 5, (B, S), generator=g).to(dev)
+    idx[:, :3] = torch.tensor([-1, M, M + 10**6])
+    for table in (flat[: B * M * C].view(B, M, C), flat[1:].view(B, M, C)):
+        assert table.is_contiguous()
+        got = _launched("gather_rows", lambda: ops.gather_rows(table, idx))
+        assert torch.equal(got, ops.gather_rows_plain(table, idx))
+        assert torch.equal(got[:, 0], table[:, 0]) and torch.equal(got[:, 1], table[:, M - 1])
+        assert torch.equal(got[:, 2], table[:, M - 1])
+
+
+def test_gather_kernel_no_grad_route_equals_autograd_route(dev):
+    """The direct forward (no gradient can flow) and the autograd Function
+    launch the same kernel once each and give the same bits."""
+    g = torch.Generator().manual_seed(5)
+    table = _cloud(g, 4, 2048, 32, device=dev)
+    idx = torch.randint(0, 2048, (4, 8192), generator=g).to(dev)
+    with torch.no_grad():
+        direct = _launched("gather_rows", lambda: ops.gather_rows(table.requires_grad_(), idx))
+    with torch.inference_mode():
+        inference = _launched("gather_rows", lambda: ops.gather_rows(table, idx))
+    graph = _launched("gather_rows", lambda: ops.gather_rows(table, idx))
+    assert graph.requires_grad and not direct.requires_grad
+    assert torch.equal(direct, graph) and torch.equal(inference, graph)
+
+
 @pytest.mark.parametrize("rows,C,S", [(16384, 3, 16384), (512, 3, 16384), (2048, 32, 8192),
                                       (256, 384, 4608), (100, 5, 300)])
 def test_scatter_add_kernel_agrees_with_plain(dev, rows, C, S):
@@ -186,7 +253,7 @@ def test_nn_one_direction_kernel_equals_plain(dev, masked):
     if masked:
         assert bool(wy.gather(1, got).eq(1).all())
         assert bool(ops.nn_one_direction(x, y, torch.zeros_like(wy)).eq(0).all())
-    else:  # the same device code as the bidirectional kernel: the same index
+    else:  # the bidirectional kernel's distance bits and tie rule: the same index
         assert torch.equal(got, ops.nn_bidir_argmin(x, y)[0])
 
 

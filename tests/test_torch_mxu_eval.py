@@ -183,8 +183,8 @@ def test_test_step_recomputes_f_exactly_under_the_gate(monkeypatch, gate, one_to
     assert len(exact_calls) == 1
     with torch.inference_mode():
         _, dense = runner.model(torch.from_numpy(batch["partial"]))
-    exact = float(f_score(dense, torch.from_numpy(batch["gt"])))
-    # the table's F is the exact one, whatever the suite's selection
-    assert rows[0, 5] == pytest.approx(exact, rel=1e-6)
+    exact = f_score(dense, torch.from_numpy(batch["gt"]), reduce=False).double().numpy()
+    # each row's F is that sample's exact one, whatever the suite's selection
+    np.testing.assert_allclose(rows[:, 5], exact, rtol=1e-6)
     if not gate:  # and the exact suite's F is the same number
-        assert rows[0, 5] == pytest.approx(rows[:, 4].mean(), rel=1e-6)
+        np.testing.assert_allclose(rows[:, 5], rows[:, 4], rtol=1e-6)
