@@ -24,10 +24,12 @@ Phases; any failure exits non-zero and prints no result line:
    timed with CUDA events over one serving request's calls (the
    scatter-add: one train step's; the one-direction argmin: one test
    cloud's; the weighted gather-sum: one superset request's). The row
-   gather and the bidirectional argmin are also timed with the host taken
-   out, by replaying their calls and their library call captured in a
-   CUDA graph, in turns with the host loop on the same card; their ``ms``
-   and ``library_ms`` are the replay times, and the gather prints the host
+   gather, the bidirectional argmin, the gather-sum's ``dweights`` and the
+   auction top-2 are also timed with the host taken out, by replaying
+   their calls and their library call captured in a CUDA graph, in turns
+   with the host loop on the same card; their ``ms`` and ``library_ms``
+   are the replay times (the top-2 also at its smallest live width), and
+   the gather prints the host
    cost of one 1-row call on its direct route and on the route through
    the autograd Function and ``launch_with_context`` (the launch path as it
    was before it resolved entries once and skipped the lock and the
@@ -85,15 +87,19 @@ Phases; any failure exits non-zero and prints no result line:
 Phase 2 also holds the gather-sum's two backward kernels (``dfeats`` at
 K = 3 on the deformable train step's 3-NN shapes, where it is the
 interpolation's VJP, and both at the superset train step's GDANet shapes
-and the tiny config's; 1e-5 of each element's absolute sum), the auction
-top-2 (16384 x 16384, every row live and a small count, values bit-equal
-and indices equal), the fused 3-NN interpolation (every deformable call's
+and the tiny config's; 1e-5 of each element's absolute sum, ``dweights``
+the same bits in two runs), the auction top-2
+(16384 x 16384 at 16384, about 3500 and about 1060 live rows, a batch of 3
+with counts (0, 1, N), item counts off the kernel's chunk and below one
+chunk, duplicated items whose ties meet in the chunk merge; values
+bit-equal, indices equal, the same bits in two runs), the fused 3-NN interpolation (every deformable call's
 shape at serving and train batch, and probes; indices equal, values
 bit-equal) and the matmul-form argmin of the opt-in eval chamfer (8 x 16384
 x 16384 and a ragged shape; indices equal) against their plain versions.
 Phase 4's test protocol runs the auction EMD at 16384 x 16384 on each
-cloud: its time per cloud, iterations, top-2 launches, and one cloud's
-assignment through the kernel equal to the plain path's. Phase 4 then runs
+cloud: its time per cloud, iterations, top-2 launches, the top-2's device
+time in one profiled auction, and one cloud's assignment through the
+kernel equal to the plain path's (and to a second run's). Phase 4 then runs
 ``validate`` and ``test`` again with ``IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER``
 set for those calls only: the matmul-form kernel's launches replace the
 exact kernel's in the eval suite, CD-L1 and CD-L2 x1000 stay within 1e-3 of
@@ -157,6 +163,10 @@ OPS_PAIR_BIDIR = 10
 # the auction's bid value per pair: 3 subtracts, 3 multiplies, 2 adds, the
 # price's subtract, and a compare
 OPS_PAIR_TOP2 = 10
+# live bidders of the auction at 16384 x 16384 (phase 4's log of one test
+# cloud): every row at the first iteration, about 3500 by the fifth, about
+# 1060 at the hundredth
+TOP2_LIVE = (16384, 3500, 1060)
 EMD_EPS, EMD_ITERATIONS = 0.005, 100  # the test protocol's auction
 # Card against CPU, one superset step at batch 2: GDANet ranks its feature
 # neighbours by the float32 matmul form on both devices, and at near-ties the
@@ -893,22 +903,25 @@ def check_dweights(calls, extra, g, dev):
         require(torch.equal(got, ops.weighted_gather_sum_dweights(idx, cot, feats)),
                 "dweights: two runs differ")
         err = max(err, float((got - want).abs().max()))
-    _, idx, feats, cot = inputs[0]
-    M = feats.shape[1]
-    bad = idx.clone()
-    bad[..., 0::3] = -1
-    bad[..., 1::3] += M
-    got = ops.weighted_gather_sum_dweights(bad, cot, feats)
-    invalid = (bad < 0) | (bad >= M)
-    require(int(got[invalid].count_nonzero()) == 0, "dweights: an out-of-range index is not 0")
-    require(torch.equal(got[~invalid], ops.weighted_gather_sum_dweights(idx, cot, feats)[~invalid]),
-            "dweights: the in-range entries changed with the out-of-range ones")
+    for _, idx, feats, cot in (inputs[0], inputs[-1]):
+        M = feats.shape[1]
+        bad = idx.clone()
+        bad[..., 0::3] = -1
+        bad[..., 1::3] += M
+        got = ops.weighted_gather_sum_dweights(bad, cot, feats)
+        invalid = (bad < 0) | (bad >= M)
+        require(int(got[invalid].count_nonzero()) == 0, "dweights: an out-of-range index is not 0")
+        require(torch.equal(got[~invalid], ops.weighted_gather_sum_dweights(idx, cot, feats)[~invalid]),
+                "dweights: the in-range entries changed with the out-of-range ones")
     timed = inputs[:len(calls)]
-    t = {
-        "ms": cuda_ms(lambda: [ops.weighted_gather_sum_dweights(i, c, f) for _, i, f, c in timed], 50),
-        "plain_ms": cuda_ms(lambda: [ops.weighted_gather_sum_dweights_plain(i, c, f) for _, i, f, c in timed], 20),
-        "library_ms": cuda_ms(lambda: [torch.bmm(c, f.transpose(1, 2)).gather(2, i) for _, i, f, c in timed], 50),
-    }
+    turns = in_turns(lambda: [ops.weighted_gather_sum_dweights(i, c, f) for _, i, f, c in timed],
+                     lambda: [torch.bmm(c, f.transpose(1, 2)).gather(2, i) for _, i, f, c in timed])
+    t = {"ms": turns["graph"][0],
+         "plain_ms": cuda_ms(lambda: [ops.weighted_gather_sum_dweights_plain(i, c, f) for _, i, f, c in timed], 20),
+         "library_ms": turns["graph"][1], "loop_ms": turns["loop"][0], "library_loop_ms": turns["loop"][1]}
+    log(f"phase 2: weighted_gather_sum_dweights, {len(timed)} calls at {B_TRAIN} x {calls[0]}, in turns: "
+        f"graph replay {turns['graph'][0]:.4f} ms (bmm + gather {turns['graph'][1]:.4f} ms), host loop "
+        f"{turns['loop'][0]:.4f} ms ({turns['loop'][1]:.4f} ms); each pair {json.dumps(turns['pairs'])}")
     # idx, g and the table read once, dw written once; a multiply and an add per term
     nbytes = sum(B_TRAIN * (S * K * (8 + 4) + S * C * 4 + M * C * 4) for S, K, M, C in calls)
     return err, t, sum(2 * B_TRAIN * S * K * C for S, K, M, C in calls), nbytes
@@ -916,28 +929,68 @@ def check_dweights(calls, extra, g, dev):
 
 def check_top2(calls, extra, g, dev):
     """auction_top2 at the test protocol's 16384 x 16384 (one bidding step
-    of one cloud), every row live and then a small count: values bit-equal
-    and indices equal on the live rows (both compute the value in one order
-    without multiply-adds; max is exact). Timed with every row live, the
-    first iteration's work. Library: ``cdist`` squared, minus the price,
-    ``topk(2)`` (the matmul form)."""
+    of one cloud), against its plain version: values bit-equal and indices
+    equal on the live rows (both compute the value in one order without
+    multiply-adds; max is exact, and the kernel's chunk merge is the plain
+    version's tile merge), and the same bits in two runs. Probes: live
+    counts ``TOP2_LIVE`` (the auction's first iteration, an early one and a
+    late one), each as the compacted width the auction hands in and as a
+    count over the full width; a batch of 3 with counts (0, 1, N); item
+    counts that are not a multiple of the kernel's chunk and below one
+    chunk; clouds whose items are duplicated half a cloud apart, so that
+    equal values (exact ties at equal prices) fall in different chunks and
+    meet in the merge. Timed with every row live (the first iteration's
+    work) and at the smallest live width. Library: ``cdist`` squared, minus
+    the price, ``topk(2)`` (the matmul form)."""
+    from imgadapointr_tpu_torch.ops import emd as port_emd
+
     (N, M), = calls
     x, y = sphere(g, 1, N, dev), sphere(g, 1, M, dev)
-    err = 0.0
-    for price in (torch.zeros(1, M, device=dev), (torch.rand(1, M, generator=g) * 1e-3).to(dev)):
-        want = ops.auction_top2_plain(x, y, price)
-        for live in (N, 1000):
-            got = ops.auction_top2(x, y, price, torch.tensor([live], device=dev))
-            for a, b in zip(got, want):
-                require(torch.equal(a[:, :live], b[:, :live]), f"auction_top2 {N}x{M} cnt={live}: differs from plain")
-    full = torch.tensor([N], device=dev)
-    t = {
-        "ms": cuda_ms(lambda: ops.auction_top2(x, y, price, full), 10),
-        "plain_ms": cuda_ms(lambda: ops.auction_top2_plain(x, y, price), 2),
-        "library_ms": cuda_ms(lambda: (-(torch.cdist(x, y).square()) - price[:, None, :]).topk(2, dim=-1), 5),
-    }
+    prices = (torch.zeros(1, M, device=dev), (torch.rand(1, M, generator=g) * 1e-3).to(dev))
+    probes = []
+
+    def same(xs, ys, ps, counts, what):
+        cnt = torch.tensor(counts, device=dev)
+        got, again = ops.auction_top2(xs, ys, ps, cnt), ops.auction_top2(xs, ys, ps, cnt)
+        want = ops.auction_top2_plain(xs, ys, ps)
+        for b, live in enumerate(counts):
+            for a, a2, w in zip(got, again, want):
+                require(torch.equal(a[b, :live], w[b, :live]), f"auction_top2 {what}: differs from plain")
+                require(torch.equal(a[b, :live], a2[b, :live]), f"auction_top2 {what}: two runs differ")
+        probes.append((tuple(xs.shape[:2]), ys.shape[1], counts,
+                       port_emd._top2_chunks(xs.shape[0], xs.shape[1], ys.shape[1], dev)))
+
+    for p_i, price in enumerate(prices):
+        for live in TOP2_LIVE:
+            same(x, y, price, [live], f"{N}x{M} cnt={live} price {p_i}")
+            if live < N:
+                same(x[:, :live].contiguous(), y, price, [live], f"width {live}x{M} price {p_i}")
+    w = TOP2_LIVE[-1]
+    same(sphere(g, 3, w, dev), sphere(g, 3, M, dev), (torch.rand(3, M, generator=g) * 1e-3).to(dev),
+         [0, 1, w], "B=3 counts (0, 1, N)")
+    for m in (M - 5, 100, 20):  # off the chunk; a few chunks; below one chunk
+        ys = sphere(g, 1, m, dev)
+        same(x[:, :w].contiguous(), ys, (torch.rand(1, m, generator=g) * 1e-3).to(dev), [w], f"M={m}")
+    half = y[:, :M // 2]
+    dup = torch.cat([half, half], dim=1).contiguous()
+    for xs in (x, half[:, :w].contiguous()):  # near ties; exact ties (bidders on the items)
+        same(xs, dup, torch.zeros(1, M, device=dev), [xs.shape[1]], f"duplicated items {xs.shape[1]}")
+    log("phase 2: auction_top2 probes ((B, width), M, counts, chunks): " + json.dumps(probes))
+    price = prices[1]
+    full, small = torch.tensor([N], device=dev), torch.tensor([w], device=dev)
+    x_small = x[:, :w].contiguous()
+    turns = in_turns(lambda: ops.auction_top2(x, y, price, full),
+                     lambda: (-(torch.cdist(x, y).square()) - price[:, None, :]).topk(2, dim=-1), reps=(20, 3))
+    t = {"ms": turns["graph"][0], "plain_ms": cuda_ms(lambda: ops.auction_top2_plain(x, y, price), 2),
+         "library_ms": turns["graph"][1], "loop_ms": turns["loop"][0], "library_loop_ms": turns["loop"][1],
+         "live_small": w, "ms_live_small": graph_ms(lambda: ops.auction_top2(x_small, y, price, small), 100),
+         "loop_ms_live_small": cuda_ms(lambda: ops.auction_top2(x_small, y, price, small), 100)}
+    log(f"phase 2: auction_top2 one launch, in turns: graph replay {t['ms']:.4f} ms at {N} live rows "
+        f"(cdist + topk {t['library_ms']:.4f} ms), host loop {t['loop_ms']:.4f} ms; at {w} live rows: "
+        f"replay {t['ms_live_small']:.4f} ms ({t['ms_live_small'] / t['ms']:.3f} of the full width), "
+        f"loop {t['loop_ms_live_small']:.4f} ms; each pair {json.dumps(turns['pairs'])}")
     # x, y and the prices read once; best, second and the index written once
-    return err, t, N * M * OPS_PAIR_TOP2, N * 12 + M * 16 + N * 16
+    return 0.0, t, N * M * OPS_PAIR_TOP2, N * 12 + M * 16 + N * 16
 
 
 def interp_inputs(cases, g, dev) -> list:
@@ -1355,7 +1408,8 @@ def train_phase(config, seed: int, dev, workdir: str) -> dict:
                "median_step_ms": statistics.median(times) * 1e3,
                "max_memory_allocated_gib": peak / 2**30,
                "profiled_step": {k: v for k, v in prof.items() if k != "top"},
-               "emd": {k: emd[k] for k in ("emd_ms", "top2_launches", "iterations", "converged")},
+               "emd": {k: emd[k] for k in ("emd_ms", "top2_launches", "iterations", "converged",
+                                           "top2_in_path_ms", "device_busy_ms")},
                "mxu_eval": mxu}
     return counts, summary
 
@@ -1416,7 +1470,8 @@ def emd_check(runner, batch, dev) -> dict:
     the 16384-point ground truth): its time (host clock between
     synchronises, three runs), the active bidders of every iteration, the
     top-2 launches, and the assignment through the kernel against the same
-    loop through the plain top-2 on the card; then one profiled run."""
+    loop through the plain top-2 on the card; then one profiled run, with
+    the top-2's device time in it."""
     from imgadapointr_tpu_torch.ops import emd as port_emd
 
     with torch.inference_mode():
@@ -1457,6 +1512,9 @@ def emd_check(runner, batch, dev) -> dict:
             "emd_ms": [t * 1e3 for t in secs], "top2_launches": launches, "iterations": iterations,
             "converged": None not in active, "active_first": active[:8], "active_last": active[-4:],
             "unique_items": int(assign.unique().numel()), "assignment_equals_plain": True,
+            # device time of the top-2's kernels in the profiled auction, and its device busy
+            "top2_in_path_ms": prof.get("ported_kernels_ms", {}).get("auction_top2"),
+            "device_busy_ms": prof.get("device_busy_ms"),
             "profile": {k: v for k, v in prof.items() if k != "top"} | {"top": prof.get("top", [])[:5]}}
 
 
@@ -1802,8 +1860,9 @@ def main(argv=None) -> int:
             "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
             "library_ms": t["library_ms"],
-            # the two kernels timed by graph replay: their host-loop times too
-            **{k: t[k] for k in ("loop_ms", "library_loop_ms", "host_us") if k in t},
+            # the kernels timed by graph replay: their host-loop times too
+            **{k: t[k] for k in ("loop_ms", "library_loop_ms", "host_us", "ms_live_small",
+                                 "loop_ms_live_small", "live_small") if k in t},
         })
         if name in NOT_ON_A_PATH:
             require(kernels[-1]["launches"] == 0, f"{name}: launched on a path the tables say it is not on")

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "weighted_gather_sum_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "weighted_gather_sum_dfeats_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "weighted_gather_sum_dweights_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
-    "auction_top2_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "auction_top2_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "three_nn_interpolate_f32": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_float, _P],
     "nn_bidir_mxu_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
@@ -156,6 +156,8 @@ def library() -> ctypes.CDLL:
                 lib.kernels_error_string.restype = ctypes.c_char_p
                 lib.fps_max_points.argtypes = []
                 lib.fps_max_points.restype = ctypes.c_int64
+                lib.auction_top2_chunks.argtypes = [_I64, _I64, _I64, _I64]
+                lib.auction_top2_chunks.restype = ctypes.c_int64
                 _lib = lib
                 _entries.update((name, getattr(lib, name)) for name in _SIGNATURES)
     return _lib

@@ -28,6 +28,8 @@ iteration makes no bid, so it sells nothing and changes no price.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -95,12 +97,29 @@ def auction_top2(x: torch.Tensor, y: torch.Tensor, price: torch.Tensor,
     best = torch.empty(B, N, dtype=torch.float32, device=x.device)
     second = torch.empty_like(best)
     best_i = torch.empty(B, N, dtype=torch.int64, device=x.device)
+    chunks = _top2_chunks(B, N, M, x.device)
+    # each (row, chunk)'s partial (best, second, best_i bits, pad), merged in chunk order
+    partial = torch.empty(B, N, chunks, 4, dtype=torch.float32, device=x.device) if chunks > 1 else None
     _build.launch(
         "auction_top2", "auction_top2_f32", x.device,
         x.data_ptr(), y.data_ptr(), price.data_ptr(), None if cnt is None else cnt.data_ptr(),
-        best.data_ptr(), second.data_ptr(), best_i.data_ptr(), B, N, M,
+        best.data_ptr(), second.data_ptr(), best_i.data_ptr(),
+        None if partial is None else partial.data_ptr(), B, N, M, chunks,
     )
     return best, second, best_i
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _top2_chunks(B: int, N: int, M: int, device: torch.device) -> int:
+    """The kernel's item chunks for a live width of N rows, as its source
+    picks them (``csrc/auction_top2.cu:auction_top2_chunks``). The width is
+    the one ``_auction_batch`` already read, so this needs no host read of
+    the device."""
+    return _build.library().auction_top2_chunks(B, N, M, _sm_count(device))
 
 
 # ----------------------------------------------------------------- auction

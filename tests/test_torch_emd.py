@@ -19,6 +19,7 @@ agrees to 1e-6 relative. The gradient of ``emd_auction`` (to ``xyz1`` only)
 is ``jax.grad``'s to 1e-6 relative in float32.
 """
 
+import functools
 import types
 
 import jax
@@ -76,6 +77,67 @@ def test_auction_top2_matches_pallas(B, N, M, with_cnt):
     np.testing.assert_array_equal(second, top[..., -2])
     np.testing.assert_array_max_ulp(best[live], jb[live], maxulp=4)
     np.testing.assert_array_max_ulp(second[live], js[live], maxulp=4)
+
+
+_MERGE_CASES = {"ragged": (3, 40, 50, (0, 1, 40)), "wide": (2, 64, 33, (64, 17))}
+
+
+@functools.lru_cache(maxsize=None)
+def _merge_case(name):
+    """A merge case's clouds and the Pallas interpreter's top-2 on them:
+    the items repeat half a cloud apart (item j and j + h equal, at equal
+    prices; cloud 0 at zero prices), and a quarter of the bidders sit on
+    items, so equal values (exact ties) fall in different tiles."""
+    B, N, M, counts = _MERGE_CASES[name]
+    rng = np.random.RandomState(N + M)
+    h = (M + 1) // 2
+    half = rng.randn(B, h, 3).astype(np.float32)
+    y = np.ascontiguousarray(np.concatenate([half, half], axis=1)[:, :M])
+    p = (np.abs(rng.randn(B, h)) * 0.1).astype(np.float32)
+    p[0] = 0.0
+    price = np.ascontiguousarray(np.concatenate([p, p], axis=1)[:, :M])
+    x = rng.randn(B, N, 3).astype(np.float32)
+    x[:, :N // 4] = y[:, :N // 4]
+    cnt = np.array(counts, np.int64)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = tuple(np.asarray(a) for a in auction_top2_pallas(
+            jnp.asarray(x), jnp.asarray(y), jnp.asarray(price), cnt=jnp.asarray(cnt, jnp.int32)))
+    return x, y, price, cnt, pallas
+
+
+@pytest.mark.parametrize("tile", [1, 3, 7])
+@pytest.mark.parametrize("case", sorted(_MERGE_CASES))
+def test_plain_top2_tile_merge_matches_pallas(monkeypatch, case, tile):
+    """The merge rule that the kernel's item chunks rely on (``upd = c1 >
+    best; second = upd ? max(best, c2) : max(second, c1)``,
+    ``auction.py:98-102``), pinned on the CPU: the plain version, made to
+    merge tiles of ``tile`` items, against the Pallas interpreter on clouds
+    whose duplicated items cross tile boundaries, with a count per cloud.
+    Indices equal and values within 4 ulp on the live rows (XLA:CPU's fused
+    value chain in the interpreter); values bit-equal to the untiled plain
+    version and to the float32 numpy evaluation, ties giving the first
+    index and second == best."""
+    x, y, price, cnt, (jb, js, ji) = _merge_case(case)
+    B, N, _ = x.shape
+    t = [torch.from_numpy(a) for a in (x, y, price)]
+    untiled = ops.auction_top2_plain(*t)
+    monkeypatch.setattr(port_emd, "_PLAIN_BLOCK", tile * B * N * 3)
+    best, second, best_i = (a.numpy() for a in ops.auction_top2(*t, torch.from_numpy(cnt)))
+    live = np.arange(N)[None, :] < cnt[:, None]
+    np.testing.assert_array_equal(best_i[live], ji[live])
+    np.testing.assert_array_max_ulp(best[live], jb[live], maxulp=4)
+    np.testing.assert_array_max_ulp(second[live], js[live], maxulp=4)
+    for a, u in zip((best, second, best_i), untiled):
+        np.testing.assert_array_equal(a, u.numpy())
+    v = _exact_values(x, y, price)
+    top = np.sort(v, axis=-1)
+    np.testing.assert_array_equal(best_i, v.argmax(-1))
+    np.testing.assert_array_equal(best, top[..., -1])
+    np.testing.assert_array_equal(second, top[..., -2])
+    on_items = np.zeros((B, N), bool)
+    on_items[:, :N // 4] = True
+    zero_price_ties = on_items & (np.arange(B)[:, None] == 0)
+    assert bool((second[zero_price_ties] == best[zero_price_ties]).all())
 
 
 def test_auction_top2_ties_and_limits():

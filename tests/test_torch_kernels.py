@@ -333,13 +333,17 @@ def test_weighted_gather_sum_kernel_refuses_what_it_cannot_take(dev):
         ops.weighted_gather_sum(w, idx, feats.transpose(1, 2).contiguous().transpose(1, 2))
 
 
-@pytest.mark.parametrize("B,S,K,M,C", [(16, 512, 63, 512, 64), (2, 100, 7, 50, 3), (3, 77, 40, 130, 12),
-                                       (1, 64, 70, 64, 1000), (2, 33, 5, 20, 1100), (2, 9, 1, 9, 130)])
+@pytest.mark.parametrize("B,S,K,M,C", [
+    (16, 512, 63, 512, 64), (2, 100, 7, 50, 3), (3, 77, 40, 130, 12), (1, 64, 70, 64, 1000),
+    (2, 33, 5, 20, 1100), (2, 9, 1, 9, 130), (4, 200, 1, 512, 64),
+    # wide tables, at a float4 width and at C = 3
+    (2, 130, 63, 769, 64), (1, 70, 5, 16385, 3)])
 def test_weighted_gather_sum_backward_kernels_agree_with_plain(dev, B, S, K, M, C):
     """dfeats (float32 atomics: 1e-5 of each element's absolute sum) and
     dweights (a fixed shuffle order: 1e-5 of each element's absolute sum,
-    and the same bits in two runs) at the superset's GDANet shape and odd
-    widths; a third of the indices out of range."""
+    and the same bits in two runs) at the superset's GDANet shape, odd
+    widths, K = 1, S off the kernel's 64-row tile and wide tables; a third
+    of the indices out of range."""
     g = torch.Generator().manual_seed(S + K + C + 1)
     w = _cloud(g, B, S, K, device=dev)
     idx = torch.randint(-M // 2, M + M // 2, (B, S, K), generator=g).to(dev)
@@ -355,23 +359,43 @@ def test_weighted_gather_sum_backward_kernels_agree_with_plain(dev, B, S, K, M, 
     assert int(dw[invalid].count_nonzero()) == 0
 
 
-@pytest.mark.parametrize("B,N,M", [(1, 16384, 16384), (2, 300, 400), (1, 128, 1500), (2, 1000, 1000)])
-def test_auction_top2_kernel_equals_plain(dev, B, N, M):
-    """Values bit-equal and indices equal on the live rows, with every row
-    live and with a count per cloud."""
+@pytest.mark.parametrize("B,N,M,counts", [
+    (1, 16384, 16384, None), (2, 300, 400, None), (1, 128, 1500, None), (2, 1000, 1000, None),
+    # live counts that straddle the kernel's 512-row tiles, over the full
+    # width and as the compacted width the auction hands in
+    (1, 16384, 16384, (1060,)), (1, 1060, 16384, (1060,)), (2, 1500, 3000, (511, 1025)),
+    (3, 1060, 4096, (0, 1, 1060)),
+    # items below one chunk, and not a multiple of the chunk
+    (1, 1060, 20, None), (1, 1060, 16379, None),
+    # no bidders at all: nothing to launch on the card
+    (2, 0, 100, None)])
+@pytest.mark.parametrize("dup", [False, True], ids=["distinct", "duplicated"])
+def test_auction_top2_kernel_equals_plain(dev, B, N, M, counts, dup):
+    """Values bit-equal and indices equal on the live rows, and the same
+    bits in two runs, with every row live and with a count per cloud.
+    ``duplicated``: the items repeat half a cloud apart at equal prices and
+    some bidders sit on items, so equal values (exact ties) fall in
+    different item chunks and meet in the kernel's merge."""
     g = torch.Generator().manual_seed(N + M)
     x, y = _cloud(g, B, N, 3, device=dev), _cloud(g, B, M, 3, device=dev)
     price = (torch.rand(B, M, generator=g) * 0.1).to(dev)
+    if dup:
+        h = (M + 1) // 2
+        y = torch.cat([y[:, :h], y[:, :h]], dim=1)[:, :M].contiguous()
+        price = torch.cat([price[:, :h], price[:, :h]], dim=1)[:, :M].contiguous()
+        x[:, :min(N, h) // 2] = y[:, :min(N, h) // 2]
     want = ops.auction_top2_plain(x, y, price)
-    got = _launched("auction_top2", lambda: ops.auction_top2(x, y, price))
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    cnt = torch.tensor([N // 3, N][:B], device=dev)
-    got = ops.auction_top2(x, y, price, cnt)
-    for b in range(B):
-        c = int(cnt[b])
-        for a, w_ in zip(got, want):
-            assert torch.equal(a[b, :c], w_[b, :c])
+    for cnt in ([N] * B if counts is None else counts, [N // 3, N, N][:B]):
+        c_t = torch.tensor(cnt, device=dev)
+        got = _launched("auction_top2", lambda: ops.auction_top2(x, y, price, c_t))
+        again = ops.auction_top2(x, y, price, c_t)
+        for b, c in enumerate(cnt):
+            for a, a2, w_ in zip(got, again, want):
+                assert torch.equal(a[b, :c], w_[b, :c])
+                assert torch.equal(a[b, :c], a2[b, :c])
+    got = ops.auction_top2(x, y, price)  # no count: every row
+    for a, w_ in zip(got, want):
+        assert torch.equal(a, w_)
 
 
 @pytest.mark.parametrize("B,N,M,C", [(16, 2048, 256, 192), (32, 4608, 576, 192), (16, 4096, 512, 384),
