@@ -24,12 +24,16 @@ Phases; any failure exits non-zero and prints no result line:
    timed with CUDA events over one serving request's calls (the
    scatter-add: one train step's; the one-direction argmin: one test
    cloud's; the weighted gather-sum: one superset request's). The row
-   gather, the bidirectional argmin, the gather-sum's ``dweights`` and the
-   auction top-2 are also timed with the host taken out, by replaying
-   their calls and their library call captured in a CUDA graph, in turns
-   with the host loop on the same card; their ``ms`` and ``library_ms``
-   are the replay times (the top-2 also at its smallest live width), and
-   the gather prints the host
+   gather, the bidirectional argmin, the gather-sum's ``dweights``, the
+   auction top-2, kNN and FPS are also timed with the host taken out, by
+   replaying their calls and their library call captured in a CUDA graph,
+   in turns with the host loop on the same card; their ``ms`` and
+   ``library_ms`` are the replay times (the top-2 also at its smallest
+   live width; kNN also over one flagship train step's calls at
+   ``B_TRAIN``, its denoise-target call alone and the normals' call; the
+   phase-2 log gives kNN an estimated issue-slot floor and FPS an estimated
+   latency floor, which stay out of the ``kernels`` line, since neither is
+   measured), and the gather prints the host
    cost of one 1-row call on its direct route and on the route through
    the autograd Function and ``launch_with_context`` (the launch path as it
    was before it resolved entries once and skipped the lock and the
@@ -84,6 +88,13 @@ Phases; any failure exits non-zero and prints no result line:
    trainable parameter moved, a profiled step, and one step at batch 2
    against the CPU (loss 1e-4, gradient norm 1e-3, relative).
 
+Phase 2 holds kNN at every request, step, normals and deformable shape
+and at probes (M below 32, M off the tile and the chunk, one query, k =
+64, points duplicated half a cloud apart on the split route so that ties
+meet in the merge, fewer distinct distances than k), and FPS at every
+shape and at probes (14511 and 16384 points, one point, one pick, more
+picks than points, identical points at widths off the block's, a cloud
+past the limit), both the same bits in two runs.
 Phase 2 also holds the gather-sum's two backward kernels (``dfeats`` at
 K = 3 on the deformable train step's 3-NN shapes, where it is the
 interpolation's VJP, and both at the superset train step's GDANet shapes
@@ -184,6 +195,17 @@ OPS_PAIR_MXU_TC = 17
 OPS_PAIR_MXU_F32 = 5
 # the fused 3-NN's weighted sum per output element: 3 multiplies, 2 adds
 OPS_INTERP_ELEM = 5
+# kNN's issue slots a candidate pair: the 8 pinned float operations, the
+# threshold test and the tile load, the ballot and the loop shared by 32
+# (csrc/knn.cu); its floor spreads them over 132 SMs x 4 schedulers x 32
+# lanes at the card's clock
+KNN_SLOTS_PAIR = 10
+# FPS: issue slots a point in the pass (8 pinned float operations, the
+# minimum, the tree's compare and 5 selects) and the cycles of the chain
+# after it that no block width shortens (two warp reductions, a
+# shared-memory write and read, one barrier): an estimate, not a reading
+FPS_SLOTS_POINT = 15
+FPS_CHAIN_CYCLES = 100
 # the deformable config's block lists (cfgs/PCN_models/AdaPoinTr.yaml otherwise)
 DEFORM_LISTS = {
     "encoder": ["attn-rw_deform", "attn-deform", "attn-deform_graph", "attn", "attn", "attn"],
@@ -226,7 +248,7 @@ NOT_ON_A_PATH = {
         "so no train step's cotangent reaches it (the JAX package's gradient never calls its Pallas VJP "
         "either); the 3-NN interpolation's VJP needs only dfeats",
 }
-PORTED_KERNEL_NAMES = ("nn_bidir_kernel", "knn_kernel", "fps_kernel", "gather_rows",
+PORTED_KERNEL_NAMES = ("nn_bidir_kernel", "knn_kernel", "knn_merge_kernel", "fps_kernel", "gather_rows",
                        "scatter_add_rows", "nn_one_direction", "weighted_gather_sum",
                        "dfeats_kernel", "dweights_kernel", "auction_top2", "three_nn_interp_kernel",
                        "nn_bidir_mxu_kernel")
@@ -491,15 +513,23 @@ def graph_ms(fn, reps: int) -> float:
 def in_turns(kernel, library, reps=(50, 50)) -> dict:
     """Graph-replay and host-loop times of ``kernel`` and ``library``, each
     taken in turns (kernel, library, library, kernel) on one card: the
-    means (kernel, library) of each, and every pair."""
+    means (kernel, library) of each, and every pair. With no library call
+    (None) the kernel is timed twice and the library's mean is None."""
     out = {}
     for how, timer in (("graph", graph_ms), ("loop", cuda_ms)):
         k1 = timer(kernel, reps[0])
-        l1, l2 = timer(library, reps[1]), timer(library, reps[1])
+        ls = [timer(library, reps[1]) for _ in range(2)] if library else []
         k2 = timer(kernel, reps[0])
-        out[how] = ((k1 + k2) / 2, (l1 + l2) / 2)
-        out.setdefault("pairs", {})[how] = [k1, l1, l2, k2]
+        out[how] = ((k1 + k2) / 2, sum(ls) / 2 if ls else None)
+        out.setdefault("pairs", {})[how] = [k1, *ls, k2]
     return out
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), in Hz."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True).stdout.split()[0]
+    return float(mhz) * 1e6
 
 
 def require(cond: bool, what: str) -> None:
@@ -515,49 +545,158 @@ def sphere(g, b, n, dev):
 # ------------------------------------------------------------ phase 2 checks
 
 
+def knn_probes(g, dev) -> list:
+    """(k, ref, query) probes beyond the paths' shapes: M below a warp's 32
+    candidates, M off the tile and the chunk, one query (twice: one chunk,
+    and the split route), k = 64 (two list slots a lane); every point twice,
+    half a cloud apart, with queries on points, at the denoise call's shape
+    (the split route: equal distances meet in the merge); three distinct
+    points repeated with k = 16 (the list fills with ties; no empty slot
+    may come out)."""
+    out = [(k, torch.randn(b, M, 3, generator=g).to(dev), torch.randn(b, S, 3, generator=g).to(dev))
+           for b, (k, S, M) in ((2, (16, 100, 20)), (B_TRAIN, (32, 64, 12345)), (2, (16, 1, 2048)),
+                                (2, (64, 1, 16384)), (3, (64, 70, 1500)))]
+    half = torch.randn(B_TRAIN, 8192, 3, generator=g).to(dev)
+    query = torch.cat([half[:, :DENOISE // 2], torch.randn(B_TRAIN, DENOISE // 2, 3, generator=g).to(dev)], 1)
+    out.append((32, torch.cat([half, half], 1).contiguous(), query.contiguous()))
+    few = torch.randn(2, 3, 3, generator=g).to(dev).repeat(1, 1400, 1)
+    out.append((16, few, torch.cat([few[:, :5], torch.zeros(2, 3, 3, device=dev)], 1).contiguous()))
+    return out
+
+
 def check_knn(calls, extra, g, dev):
+    """knn_with_distance against knn_plain at every shape the paths give it
+    (the serving request's at ``B``; ``extra``: the flagship, superset and
+    deformable train steps' at ``B_TRAIN``, the segmentation models' and
+    the deformable request's at ``B``) and at :func:`knn_probes`: indices
+    equal and distances bit-equal (both take the diff form without
+    contraction, and the kernel's split route merges its chunks' k-lists by
+    (distance, index), exactly); two runs give the same bits. Timed by
+    :func:`time_knn`."""
+    cases = batched(calls, extra)
     inputs = [(k, torch.randn(b, M, 3, generator=g).to(dev), torch.randn(b, S, 3, generator=g).to(dev))
-              for b, (k, S, M) in batched(calls, extra)]
+              for b, (k, S, M) in cases] + knn_probes(g, dev)
     err = 0.0
-    for k, ref, q in inputs:
+    for n, (k, ref, q) in enumerate(inputs):
         d, i = ops.knn_with_distance(k, ref, q)
         pd, pi = ops.knn_plain(k, ref, q)
-        require(torch.equal(i, pi), f"knn k={k} {tuple(q.shape)}x{tuple(ref.shape)}: indices differ")
+        what = f"knn k={k} {tuple(q.shape)}x{tuple(ref.shape)}"
+        require(torch.equal(i, pi), f"{what}: indices differ")
         err = max(err, float((d - pd).abs().max()))
-    require(err == 0.0, f"knn distances differ by {err}")
-    inputs = inputs[:len(calls)]
-    t = {
-        "ms": cuda_ms(lambda: [ops.knn_with_distance(k, r, q) for k, r, q in inputs], 20),
-        "plain_ms": cuda_ms(lambda: [ops.knn_plain(k, r, q) for k, r, q in inputs], 5),
-        "library_ms": cuda_ms(lambda: [torch.cdist(q, r).topk(k, largest=False) for k, r, q in inputs], 20),
-    }
+        require(torch.equal(d, pd), f"{what}: distances differ by {err}")
+        if n < len(calls) or n >= len(cases):
+            d2, i2 = ops.knn_with_distance(k, ref, q)
+            require(torch.equal(d2, d) and torch.equal(i2, i), f"{what}: two runs differ")
+    split = sorted({(int(r.shape[0]), k, int(q.shape[1]), int(r.shape[1]),
+                     pointops.knn_chunks(r.shape[0], q.shape[1], r.shape[1], dev)) for k, r, q in inputs})
+    log("phase 2: knn (B, k, S, M, chunks) checked: " + json.dumps([c for c in split if c[-1] > 1])
+        + f" split, {sum(c[-1] == 1 for c in split)} shapes in one chunk")
+
+    t = time_knn(calls, g, dev)
+    t["plain_ms"] = cuda_ms(lambda: [ops.knn_plain(k, r, q) for k, r, q in inputs[:len(calls)]], 5)
     pairs = sum(B * S * M for _, S, M in calls)
     nbytes = sum(B * (S + M) * 12 + B * S * k * 12 for k, S, M in calls)
     return err, t, pairs * OPS_PAIR_ONE_WAY, nbytes
 
 
+def time_knn(calls, g, dev) -> dict:
+    """kNN's times by graph replay and host loop in turns with
+    ``cdist().topk``, on new random clouds: the request's ``calls`` at
+    ``B``, the flagship step's at ``B_TRAIN``, its denoise-target call alone
+    and the normals' call (k = 30, the superset request's); each with its
+    bound by operations, and in the log an estimated issue-slot floor
+    (``KNN_SLOTS_PAIR`` slots a pair on every lane of the card at its
+    clock). Only the public op is
+    called, so the same code times an older tree's kernel."""
+    cfg = cfg_from_yaml_file(CONFIG).model
+    step = train_step_calls(cfg)["knn"]
+    sets = {"request": (B, calls), "step": (B_TRAIN, step), "denoise": (B_TRAIN, step[-1:]),
+            "normals": (B, gdanet_calls(int(cfg.num_query))["knn"])}
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t, more = {}, {}
+    for name, (b, cs) in sets.items():
+        timed = [(k, torch.randn(b, M, 3, generator=g).to(dev), torch.randn(b, S, 3, generator=g).to(dev))
+                 for k, S, M in cs]
+        turns = in_turns(lambda: [ops.knn_with_distance(k, r, q) for k, r, q in timed],
+                         lambda: [torch.cdist(q, r).topk(k, largest=False) for k, r, q in timed])
+        pairs = sum(b * S * M for _, S, M in cs)
+        floor = pairs * KNN_SLOTS_PAIR / (sms * 4 * 32 * clock) * 1e3
+        log(f"phase 2: knn, the {name}'s {len(cs)} calls at batch {b}, in turns: graph replay "
+            f"{turns['graph'][0]:.4f} ms (cdist + topk {turns['graph'][1]:.4f} ms), host loop "
+            f"{turns['loop'][0]:.4f} ms ({turns['loop'][1]:.4f} ms); {pairs} pairs, estimated issue-slot floor "
+            f"{floor:.5f} ms; each pair {json.dumps(turns['pairs'])}")
+        if name == "request":
+            t = {"ms": turns["graph"][0], "loop_ms": turns["loop"][0], "library_ms": turns["graph"][1],
+                 "library_loop_ms": turns["loop"][1]}
+        else:
+            more.update({f"{name}_ms": turns["graph"][0], f"{name}_loop_ms": turns["loop"][0],
+                         f"{name}_library_ms": turns["graph"][1], f"{name}_library_loop_ms": turns["loop"][1],
+                         f"{name}_bound_ms": pairs * OPS_PAIR_ONE_WAY / PEAK_F32 * 1e3})
+    t["more"] = more
+    return t
+
+
+def fps_step_cycles(n: int) -> int:
+    """The least cycles of one dependent FPS step over n points: the pass
+    issues ``FPS_SLOTS_POINT`` slots a point on the SM's 128 lanes, then the
+    chain that no width shortens, ``FPS_CHAIN_CYCLES``."""
+    return -(-n // 128) * FPS_SLOTS_POINT + FPS_CHAIN_CYCLES
+
+
 def check_fps(calls, extra, g, dev):
-    inputs = [(torch.randn(b, N, 3, generator=g).to(dev), n) for b, (N, n) in batched(calls, extra)]
+    """furthest_point_sample against fps_plain (picks equal; two runs
+    equal) at the request's, the step's and the segmentation models'
+    shapes and probes: N = 14511 (the old limit) and 16384 (the new one), N
+    off threads x points a thread, one point, one pick, more picks than
+    points; identical points (every padded slot and tie must lose to index
+    0) at widths off the block's; a cloud past the limit raises. Timed by
+    :func:`time_fps`."""
+    probes = [(2, (14511, 64)), (1, (16384, 32)), (3, (1000, 999)), (2, (2049, 300)), (2, (1, 4)),
+              (2, (300, 1)), (2, (50, 80))]
+    inputs = [(torch.randn(b, N, 3, generator=g).to(dev), n) for b, (N, n) in batched(calls, extra) + probes]
     err = 0.0
     for xyz, n in inputs:
-        diff = ops.furthest_point_sample(xyz, n) - ops.fps_plain(xyz, n)
-        err = max(err, float(diff.abs().max()))
+        got = ops.furthest_point_sample(xyz, n)
+        err = max(err, float((got - ops.fps_plain(xyz, n)).abs().max()))
         require(err == 0.0, f"fps {tuple(xyz.shape)}->{n}: picks differ")
-    same = torch.ones(B, N_PARTIAL, 3, device=dev) * 0.25
-    require(torch.equal(ops.furthest_point_sample(same, 512),
-                        torch.zeros(B, 512, dtype=torch.int64, device=dev)),
-            "fps on identical points must pick index 0 throughout")
-    inputs = inputs[:len(calls)]
-    t = {
-        "ms": cuda_ms(lambda: [ops.furthest_point_sample(x, n) for x, n in inputs], 20),
-        "plain_ms": cuda_ms(lambda: [ops.fps_plain(x, n) for x, n in inputs], 2),
-        "library_ms": None,
-    }
+        require(torch.equal(ops.furthest_point_sample(xyz, n), got), f"fps {tuple(xyz.shape)}->{n}: two runs differ")
+    for n_pts, picks in ((N_PARTIAL, 512), (1, 16), (33, 16), (1025, 16), (8193, 16)):
+        same = torch.full((B, n_pts, 3), 0.25, device=dev)
+        require(torch.equal(ops.furthest_point_sample(same, picks),
+                            torch.zeros(B, picks, dtype=torch.int64, device=dev)),
+                f"fps on {n_pts} identical points must pick index 0 throughout")
+    limit = _build.library().fps_max_points()
+    require(limit >= 14511, f"fps holds only {limit} points")
+    try:
+        ops.furthest_point_sample(torch.zeros(1, limit + 1, 3, device=dev), 4)
+        require(False, "fps past its limit must raise")
+    except ValueError:
+        pass
+    t = time_fps(calls, g, dev)
+    t["plain_ms"] = cuda_ms(lambda: [ops.fps_plain(x, n) for x, n in inputs[:len(calls)]], 2)
     # every step folds N distances into the cache and takes their argmax
     n_ops = sum(B * (n - 1) * N * (OPS_PAIR_ONE_WAY + 1) for N, n in calls)
     nbytes = sum(B * (N * 12 + n * 8) for N, n in calls)
-    log(f"phase 2: fps runs {sum(n - 1 for _, n in calls)} dependent steps per request")
     return err, t, n_ops, nbytes
+
+
+def time_fps(calls, g, dev) -> dict:
+    """FPS's times over the request's ``calls`` at ``B`` by graph replay and
+    host loop in turns, on new random clouds, and in the log an estimated
+    latency floor: the dependent steps times :func:`fps_step_cycles` at the
+    card's clock. Only
+    the public op is called, so the same code times an older tree's
+    kernel."""
+    timed = [(torch.randn(B, N, 3, generator=g).to(dev), n) for N, n in calls]
+    turns = in_turns(lambda: [ops.furthest_point_sample(x, n) for x, n in timed], None)
+    steps = sum(n - 1 for _, n in calls)
+    floor = sum((n - 1) * fps_step_cycles(N) for N, n in calls) / sm_clock_hz() * 1e3
+    t = {"ms": turns["graph"][0], "loop_ms": turns["loop"][0], "library_ms": None}
+    log(f"phase 2: fps, the request's {len(calls)} calls at batch {B} ({steps} dependent steps), in turns: "
+        f"graph replay {t['ms']:.4f} ms ({t['ms'] * 1e3 / steps:.4f} us a step), host loop {t['loop_ms']:.4f} ms; "
+        f"estimated latency floor {floor:.4f} ms; each pair {json.dumps(turns['pairs'])}")
+    return t
 
 
 def launch_with_context(kernel: str, entry: str, device: torch.device, *args) -> None:
@@ -1757,6 +1896,10 @@ def main(argv=None) -> int:
                        nn_bidir_mxu=[(n_fine, n_fine)],
                        weighted_gather_sum_dfeats=[(B_TRAIN * gr, (S, 3, M, C))
                                                    for gr, S, M, C in d_train["weighted_gather_sum_dfeats"]])
+    # kNN: the superset step's GDANet pass (the normals at B_TRAIN) and the
+    # deformable model's own searches, request and step
+    extra["knn"] += [(B_TRAIN, c) for c in gdanet_calls(int(seg_cfgs[0].num_query))["knn"]]
+    extra["knn"] += [(B, c) for c in request_calls(dcfg)["knn"]] + [(B_TRAIN, c) for c in d_train["knn"]]
     extra.update(three_nn_interpolate=[(B_TRAIN, c) for c in d_train["three_nn_interpolate"]],
                  nn_bidir_mxu=[(2, (4097, n_fine - 1))],
                  weighted_gather_sum_dfeats=[(B_TRAIN, c) for c in bwd] + bwd_extra)
@@ -1863,6 +2006,7 @@ def main(argv=None) -> int:
             # the kernels timed by graph replay: their host-loop times too
             **{k: t[k] for k in ("loop_ms", "library_loop_ms", "host_us", "ms_live_small",
                                  "loop_ms_live_small", "live_small") if k in t},
+            **t.get("more", {}),
         })
         if name in NOT_ON_A_PATH:
             require(kernels[-1]["launches"] == 0, f"{name}: launched on a path the tables say it is not on")

@@ -9,14 +9,39 @@
 // core to serialise on.
 //
 // Bound on the H100: latency. The npoint steps depend on each other (each
-// needs the previous argmax), and one step is only N distance updates plus
-// a block-wide argmax, so the card's rates are far away; what counts is the
-// time of one step. Design: one block per cloud, so the batch fills SMs in
-// parallel; the coordinates and the cache live in shared memory for the
-// whole loop (16 bytes a point: N <= 14336 fits in one SM's 227 KB); each
-// step is one pass over the thread's points, a warp-shuffle argmax and one
-// more across warps, two barriers in all. Ties go to the lowest index at
-// every level of the reduction, as torch.argmax and jnp.argmax do.
+// needs the previous pick), and one step is only N distance updates plus a
+// block-wide argmax, so the card's rates are far away; what counts is the
+// time of one step. Its floor is one pass over a thread's points (about 15
+// issue slots a point, N / 128 lanes of the SM's four schedulers), a warp
+// argmax, a shared-memory write, one barrier and a shared-memory read.
+//
+// Design: one block per cloud, sized to N: T threads (a multiple of 32)
+// each own P contiguous points (x, y, z and the running minimum) in
+// registers: 2048 points are 256 threads x 8 (two warps a scheduler, so
+// that one warp's dependent distance chain hides behind the other's), 512
+// are 128 x 4; few warps keep the per-warp work outside the pass and the
+// barrier's width small. Thread t owns points [t P, (t + 1) P), so a lower
+// lane or warp always holds lower indices and "first index on ties"
+// becomes "lowest lane". A step:
+// - the thread folds the last pick's distance into its P minima and takes
+//   their first maximum and its coordinates by a tree of strict compares
+//   (the left half keeps a tie), log2 P deep;
+// - the warp takes the largest key (the minimum's bits: non-negative floats
+//   order as unsigned integers) by __reduce_max_sync, and the lowest lane
+//   holding it by __ballot_sync and __ffs; that lane writes its key and
+//   (x, y, z, index) into its warp's slot, double-buffered by the step's
+//   parity so that a warp that runs ahead never overwrites a slot still
+//   being read;
+// - one __syncthreads; then every thread reads the slots' keys (broadcast
+//   16-byte loads: two at 8 warps) and keeps the first largest by a tree of
+//   strict compares, and reads that slot's (x, y, z, index): no second warp
+//   reduction, no second barrier, no lookup of the cloud.
+// A padded point (past N) has coordinates 0 and minimum 0 for good, and an
+// unused slot keeps key 0: each can only tie a valid point's key, and the
+// valid point comes first. Past 8192 points (on no path of the model) the
+// block has up to 1024 threads of 16 points, 64 registers each, and the
+// compiler spills some of them to local memory: there a step is slower
+// than with the cloud in shared memory.
 //
 // Distances use __fsub_rn/__fmul_rn/__fadd_rn: no FMA contraction changes
 // the rounding against the plain PyTorch version.
@@ -27,107 +52,135 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int MAX_POINTS = 1024 * 16;
+constexpr int MAX_WARPS = 32;
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ void take_better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+__device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, float by,
+                                        float bz) {
+  const float dx = __fsub_rn(ax, bx);
+  const float dy = __fsub_rn(ay, by);
+  const float dz = __fsub_rn(az, bz);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    take_better(v, i, ov, oi);
-  }
-}
+template <int P, int MAX_T>
+__global__ void __launch_bounds__(MAX_T)
+    fps_kernel(const float* __restrict__ xyz, int64_t* __restrict__ out, int N, int npoint) {
+  __shared__ __align__(16) unsigned s_key[2][MAX_WARPS];
+  __shared__ float4 s_pick[2][MAX_WARPS];  // x, y, z, index bits
 
-__global__ void __launch_bounds__(kThreads)
-    fps_kernel(const float* __restrict__ xyz, int64_t* __restrict__ out, int N,
-               int npoint) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + N;
-  float* sz = sy + N;
-  float* md = sz + N;
-  __shared__ float red_v[kThreads / 32];
-  __shared__ int red_i[kThreads / 32];
-  __shared__ int s_last;
-
-  const int b = blockIdx.x;
-  const float* p = xyz + (int64_t)b * N * 3;
-  int64_t* o = out + (int64_t)b * npoint;
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    sx[i] = p[3 * i];
-    sy[i] = p[3 * i + 1];
-    sz[i] = p[3 * i + 2];
-    md[i] = 1e10f;
-  }
-  if (threadIdx.x == 0) o[0] = 0;
-  __syncthreads();
-
+  const float* c = xyz + (int64_t)blockIdx.x * N * 3;
+  int64_t* o = out + (int64_t)blockIdx.x * npoint;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int last = 0;
-  for (int it = 1; it < npoint; ++it) {
-    const float px = sx[last], py = sy[last], pz = sz[last];
-    float bv = -INFINITY;
-    int bi = 0x7fffffff;
-    for (int i = threadIdx.x; i < N; i += kThreads) {
-      const float dx = __fsub_rn(sx[i], px);
-      const float dy = __fsub_rn(sy[i], py);
-      const float dz = __fsub_rn(sz[i], pz);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      const float m = fminf(md[i], d);
-      md[i] = m;
-      if (m > bv) {  // i rises within a thread: keeps the first index on ties
-        bv = m;
-        bi = i;
-      }
+  const int first = threadIdx.x * P;
+  unsigned* const my_key = &s_key[0][threadIdx.x >> 5];  // this warp's slots
+  float4* const my_pick = &s_pick[0][threadIdx.x >> 5];
+
+  for (int i = threadIdx.x; i < 2 * MAX_WARPS; i += blockDim.x)
+    s_key[i / MAX_WARPS][i % MAX_WARPS] = 0u;
+  float x[P], y[P], z[P], md[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    x[j] = y[j] = z[j] = md[j] = 0.0f;
+    if (first + j < N) {
+      x[j] = c[3 * (first + j)];
+      y[j] = c[3 * (first + j) + 1];
+      z[j] = c[3 * (first + j) + 2];
+      md[j] = 1e10f;
     }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = red_v[lane];  // kThreads / 32 == 32 partials, one per lane
-      bi = red_i[lane];
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        s_last = bi;
-        o[it] = bi;
-      }
-    }
-    __syncthreads();
-    last = s_last;
   }
+  float px = c[0], py = c[1], pz = c[2];
+  if (threadIdx.x == 0) o[0] = 0;
+  __syncthreads();  // unused slots hold key 0 and lose every tie
+
+  for (int it = 1; it < npoint; ++it) {
+    float v[P], bx[P], by[P], bz[P];
+    int bj[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      md[j] = fminf(md[j], sqdist(x[j], y[j], z[j], px, py, pz));
+      v[j] = md[j];
+      bj[j] = j;
+      bx[j] = x[j];
+      by[j] = y[j];
+      bz[j] = z[j];
+    }
+#pragma unroll
+    for (int h = 1; h < P; h *= 2) {
+#pragma unroll
+      for (int j = 0; j + h < P; j += 2 * h) {
+        const bool right = v[j + h] > v[j];  // strict: the lower index keeps a tie
+        v[j] = right ? v[j + h] : v[j];
+        bj[j] = right ? bj[j + h] : bj[j];
+        bx[j] = right ? bx[j + h] : bx[j];
+        by[j] = right ? by[j + h] : by[j];
+        bz[j] = right ? bz[j + h] : bz[j];
+      }
+    }
+    const unsigned key = __float_as_uint(v[0]);
+    const int par = (it & 1) * MAX_WARPS;
+    const unsigned top = __reduce_max_sync(FULL, key);
+    if (lane == __ffs(__ballot_sync(FULL, key == top)) - 1) {
+      my_key[par] = key;
+      my_pick[par] = make_float4(bx[0], by[0], bz[0], __int_as_float(first + bj[0]));
+    }
+    __syncthreads();
+    // the first largest of the block's slots (MAX_T / 32, the unused at 0)
+    constexpr int SLOTS = MAX_T / 32;
+    unsigned k[SLOTS];
+    int w[SLOTS];
+#pragma unroll
+    for (int g = 0; g < SLOTS / 4; ++g) {
+      const uint4 k4 = reinterpret_cast<const uint4*>(&s_key[0][0] + par)[g];
+      k[4 * g] = k4.x;
+      k[4 * g + 1] = k4.y;
+      k[4 * g + 2] = k4.z;
+      k[4 * g + 3] = k4.w;
+    }
+#pragma unroll
+    for (int i = 0; i < SLOTS; ++i) w[i] = i;
+#pragma unroll
+    for (int h = 1; h < SLOTS; h *= 2) {
+#pragma unroll
+      for (int i = 0; i + h < SLOTS; i += 2 * h) {
+        const bool right = k[i + h] > k[i];  // strict: the lower warp keeps a tie
+        k[i] = right ? k[i + h] : k[i];
+        w[i] = right ? w[i + h] : w[i];
+      }
+    }
+    const float4 pick = (&s_pick[0][0])[par + w[0]];
+    px = pick.x;
+    py = pick.y;
+    pz = pick.z;
+    if (threadIdx.x == 0) o[it] = __float_as_int(pick.w);
+  }
+}
+
+template <int P, int MAX_T>
+cudaError_t launch(const float* xyz, int64_t* out, int64_t B, int64_t N, int64_t npoint,
+                   cudaStream_t stream) {
+  const int64_t threads = ((N + P - 1) / P + 31) / 32 * 32;
+  fps_kernel<P, MAX_T><<<(unsigned)B, (unsigned)threads, 0, stream>>>(xyz, out, (int)N,
+                                                                      (int)npoint);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Largest cloud whose coordinates and cache fit in one block's shared memory.
-extern "C" int64_t fps_max_points() {
-  return (227 * 1024 - 2 * kThreads / 32 * 4 - 16) / 16;
-}
+// Largest cloud a block holds: 1024 threads x 16 points.
+extern "C" int64_t fps_max_points() { return MAX_POINTS; }
 
 // xyz (B, N, 3) float32 -> out (B, npoint) int64. Requires 1 <= N <=
 // fps_max_points() and npoint >= 1; the caller checks.
-extern "C" int fps_f32(const float* xyz, int64_t* out, int64_t B, int64_t N,
-                       int64_t npoint, void* stream) {
+extern "C" int fps_f32(const float* xyz, int64_t* out, int64_t B, int64_t N, int64_t npoint,
+                       void* stream) {
   if (B == 0 || npoint == 0) return 0;
-  const size_t smem = (size_t)N * 4 * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fps_kernel<<<(unsigned)B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xyz, out, (int)N, (int)npoint);
-  return (int)cudaGetLastError();
+  if (N < 1 || N > MAX_POINTS || npoint >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N <= 512) return (int)launch<4, 128>(xyz, out, B, N, npoint, s);
+  if (N <= 1024) return (int)launch<8, 128>(xyz, out, B, N, npoint, s);
+  if (N <= 2048) return (int)launch<8, 256>(xyz, out, B, N, npoint, s);
+  if (N <= 8192) return (int)launch<16, 512>(xyz, out, B, N, npoint, s);
+  return (int)launch<16, 1024>(xyz, out, B, N, npoint, s);
 }

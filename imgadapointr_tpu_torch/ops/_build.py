@@ -16,6 +16,7 @@ the launch under the kernel's name.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,7 +39,7 @@ _I64 = ctypes.c_int64
 # C entry point -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "gather_rows_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
-    "knn_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "knn_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "fps_f32": [_P, _P, _I64, _I64, _I64, _P],
     "nn_bidir_argmin_f32": [_P, _P, _P, _I64, _I64, _I64, _P],
     "scatter_add_rows_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
@@ -158,9 +159,18 @@ def library() -> ctypes.CDLL:
                 lib.fps_max_points.restype = ctypes.c_int64
                 lib.auction_top2_chunks.argtypes = [_I64, _I64, _I64, _I64]
                 lib.auction_top2_chunks.restype = ctypes.c_int64
+                lib.knn_chunks.argtypes = [_I64, _I64, _I64, _I64]
+                lib.knn_chunks.restype = ctypes.c_int64
                 _lib = lib
                 _entries.update((name, getattr(lib, name)) for name in _SIGNATURES)
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """A card's SM count, from which the kNN and auction top-2 kernels pick
+    their chunks."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:

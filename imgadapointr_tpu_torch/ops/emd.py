@@ -28,8 +28,6 @@ iteration makes no bid, so it sells nothing and changes no price.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
@@ -109,17 +107,12 @@ def auction_top2(x: torch.Tensor, y: torch.Tensor, price: torch.Tensor,
     return best, second, best_i
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _top2_chunks(B: int, N: int, M: int, device: torch.device) -> int:
     """The kernel's item chunks for a live width of N rows, as its source
     picks them (``csrc/auction_top2.cu:auction_top2_chunks``). The width is
     the one ``_auction_batch`` already read, so this needs no host read of
     the device."""
-    return _build.library().auction_top2_chunks(B, N, M, _sm_count(device))
+    return _build.library().auction_top2_chunks(B, N, M, _build.sm_count(device))
 
 
 # ----------------------------------------------------------------- auction

@@ -27,6 +27,8 @@ dz*dz`` and break ties on the first index; never by the matmul form or
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -213,12 +215,23 @@ def knn_with_distance(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
     B, S = new_xyz.shape[:2]
     dist = torch.empty(B, S, nsample, dtype=torch.float32, device=xyz.device)
     idx = torch.empty(B, S, nsample, dtype=torch.int64, device=xyz.device)
+    chunks = knn_chunks(B, S, M, xyz.device)
+    # each (query, chunk)'s k-list as (distance bits, index), merged in chunk order
+    part = torch.empty(B, S, chunks, nsample, 2, dtype=torch.int32, device=xyz.device) if chunks > 1 else None
     _build.launch(
         "knn", "knn_f32", xyz.device,
         xyz.data_ptr(), new_xyz.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-        B, M, S, nsample,
+        None if part is None else part.data_ptr(), B, M, S, nsample, chunks,
     )
     return dist, idx
+
+
+@functools.lru_cache(maxsize=None)
+def knn_chunks(B: int, S: int, M: int, device: torch.device) -> int:
+    """The kernel's reference chunks for B x S queries against M points,
+    as its source picks them (``csrc/knn.cu:knn_chunks``): more than one
+    only where the queries leave the card under-filled."""
+    return _build.library().knn_chunks(B, S, M, _build.sm_count(device))
 
 
 def knn_point(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
@@ -260,7 +273,7 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     _build.require_cuda_f32("fps", xyz.device, xyz, last_dim=3)
     max_n = _build.library().fps_max_points()
     if N > max_n:
-        raise ValueError(f"fps: the kernel holds at most {max_n} points in shared memory, got {N}")
+        raise ValueError(f"fps: the kernel holds at most {max_n} points in one block's registers, got {N}")
     B = xyz.shape[0]
     out = torch.empty(B, npoint, dtype=torch.int64, device=xyz.device)
     _build.launch(

@@ -51,14 +51,39 @@ def _launched(kernel, fn):
     return out
 
 
-@pytest.mark.parametrize("B,S,M,k", [(2, 2048, 2048, 16), (2, 512, 256, 8), (3, 100, 70, 64), (1, 33, 5, 5)])
+@pytest.mark.parametrize("B,S,M,k", [(2, 2048, 2048, 16), (2, 512, 256, 8), (3, 100, 70, 64), (1, 33, 5, 5),
+                                     (16, 64, 16384, 32), (16, 512, 512, 30), (2, 300, 20, 16),
+                                     (16, 64, 12345, 32), (1, 1, 2048, 16), (2, 1, 16384, 64), (3, 70, 1500, 40)])
 def test_knn_kernel_equals_plain(dev, B, S, M, k):
+    """The request's and the step's shapes, the denoise targets (16 x 64
+    against 16384: the split route) and the normals (k = 30); M below a
+    warp's 32 candidates, M off the tile and the chunk, one query, k > 32
+    (two list slots a lane); two runs give the same bits."""
     g = torch.Generator().manual_seed(S + M + k)
     ref, q = _cloud(g, B, M, 3, device=dev), _cloud(g, B, S, 3, device=dev)
     d, i = _launched("knn", lambda: ops.knn_with_distance(k, ref, q))
     pd, pi = ops.knn_plain(k, ref, q)
     assert torch.equal(i, pi)
     assert torch.equal(d, pd)
+    d2, i2 = ops.knn_with_distance(k, ref, q)
+    assert torch.equal(d2, d) and torch.equal(i2, i)
+
+
+@pytest.mark.parametrize("B,S,M,k", [(16, 64, 16384, 32), (2, 256, 4096, 16)])
+def test_knn_kernel_ties_meet_in_the_chunk_merge(dev, B, S, M, k):
+    """Every reference point twice, half a cloud apart, and queries on
+    reference points: equal distances (0 to the point and its copy, and
+    every pair of copies) fall in different chunks of the split route and
+    meet in the merge, where the lower index must come first."""
+    assert ops.pointops.knn_chunks(B, S, M, dev) > 1, "the case must take the split route"
+    g = torch.Generator().manual_seed(M + k)
+    half = _cloud(g, B, M // 2, 3, device=dev)
+    ref = torch.cat([half, half], dim=1).contiguous()
+    q = torch.cat([half[:, :S // 2], _cloud(g, B, S - S // 2, 3, device=dev)], dim=1).contiguous()
+    d, i = _launched("knn", lambda: ops.knn_with_distance(k, ref, q))
+    pd, pi = ops.knn_plain(k, ref, q)
+    assert torch.equal(i, pi) and torch.equal(d, pd)
+    assert torch.equal(i[:, :S // 2, :2], torch.stack([i[:, :S // 2, 0], i[:, :S // 2, 0] + M // 2], -1))
 
 
 def test_knn_kernel_ties_and_limits(dev):
@@ -75,18 +100,51 @@ def test_knn_kernel_ties_and_limits(dev):
         ops.knn_with_distance(4, ref.double(), ref.double())
     with pytest.raises(ValueError):  # a host pointer never reaches the kernel
         ops.knn_with_distance(4, ref, ref.cpu())
+    with pytest.raises(ValueError):
+        ops.knn_with_distance(4, ref.transpose(1, 2).contiguous().transpose(1, 2), ref)
 
 
-@pytest.mark.parametrize("B,N,npoint", [(4, 2048, 512), (4, 512, 256), (2, 2048, 256), (3, 5000, 64)])
+def test_knn_kernel_fewer_distinct_distances_than_k(dev):
+    """Three distinct points, each repeated, with k = 16 and a few queries
+    (4200 points in two chunks): the k-list fills with ties, in index
+    order, on both sides of the merge; no empty slot comes out."""
+    pts = torch.randn(2, 3, 3, generator=torch.Generator().manual_seed(2))
+    ref = pts.repeat(1, 1400, 1).to(dev)
+    q = torch.cat([ref[:, :5], torch.zeros(2, 3, 3, device=dev)], dim=1).contiguous()
+    d, i = ops.knn_with_distance(16, ref, q)
+    pd, pi = ops.knn_plain(16, ref, q)
+    assert torch.equal(i, pi) and torch.equal(d, pd)
+    assert int(i.max()) < ref.shape[1]
+
+
+@pytest.mark.parametrize("B,N,npoint", [(4, 2048, 512), (4, 512, 256), (2, 2048, 256), (3, 5000, 64),
+                                        (2, 14511, 64), (1, 16384, 32), (3, 1000, 999), (2, 2049, 300),
+                                        (2, 1, 4), (2, 300, 1), (2, 50, 80)])
 def test_fps_kernel_equals_plain(dev, B, N, npoint):
+    """N = 512 and 2048 (the model's), 14511 (the old limit) and 16384 (the
+    new one), N off threads x points a thread, one point, one pick, and
+    more picks than points (the plain loop repeats picks); two runs give
+    the same picks."""
     xyz = _cloud(torch.Generator().manual_seed(N), B, N, 3, device=dev)
     got = _launched("fps", lambda: ops.furthest_point_sample(xyz, npoint))
     assert torch.equal(got, ops.fps_plain(xyz, npoint))
+    assert torch.equal(ops.furthest_point_sample(xyz, npoint), got)
 
 
 def test_fps_kernel_identical_points(dev):
     xyz = torch.ones(2, 2048, 3, device=dev)
     assert torch.equal(ops.furthest_point_sample(xyz, 64), torch.zeros(2, 64, dtype=torch.int64, device=dev))
+
+
+def test_fps_kernel_limits(dev):
+    """Padded slots never win: all-equal clouds at sizes off the block's
+    width pick index 0 throughout; a cloud past the limit raises."""
+    for n in (1, 33, 1025, 8193):
+        xyz = torch.full((2, n, 3), -0.5, device=dev)
+        assert torch.equal(ops.furthest_point_sample(xyz, 16), torch.zeros(2, 16, dtype=torch.int64, device=dev))
+    assert _build.library().fps_max_points() >= 14511
+    with pytest.raises(ValueError):
+        ops.furthest_point_sample(torch.zeros(1, _build.library().fps_max_points() + 1, 3, device=dev), 4)
 
 
 @pytest.mark.parametrize("M,C,S", [(2048, 3, 4096), (512, 64, 8192), (256, 384, 2048), (16384, 3, 16384), (100, 5, 300)])

@@ -10,6 +10,7 @@ float32 and 1e-12 in float64 (the two sides sum in different orders).
 
 import ast
 import contextlib
+import functools
 from pathlib import Path
 
 import jax
@@ -94,6 +95,58 @@ def test_knn_ties_first_index_and_errors():
         ops.knn_with_distance(13, _t(r), _t(q))  # k > M, like jax top_k
     with pytest.raises(ValueError):
         ops.knn_with_distance(2, _t(r).to("meta"), _t(q).to("meta"))
+
+
+@functools.lru_cache(maxsize=None)
+def _merge_case(k):
+    """Clouds whose every point appears twice, 60 indices apart, queries
+    on reference points and off them, and the JAX package's selections:
+    the XLA diff form and the Pallas kernel in interpret mode."""
+    rng = np.random.RandomState(11)
+    half = rng.randn(2, 60, 3).astype(np.float32)
+    r = np.concatenate([half, half], axis=1)
+    q = np.concatenate([half[:, ::3], rng.randn(2, 20, 3).astype(np.float32)], axis=1)
+    _, ji = jpo.knn_with_distance(k, jnp.asarray(r), jnp.asarray(q), diff_form=True)
+    with pltpu.force_tpu_interpret_mode():
+        _, pi = knn_pallas(k, jnp.asarray(r), jnp.asarray(q))
+    return r, q, np.asarray(ji), np.asarray(pi)
+
+
+def _chunked_knn(k, r, q, chunk):
+    """kNN by the kernel's split route: each chunk of ``chunk`` reference
+    points gives its k-list (the plain version on that chunk), and the
+    lists are folded in chunk order by a stable sort of the earlier list
+    followed by the later one, so (distance, index) decides."""
+    best_d = best_i = None
+    for base in range(0, r.shape[1], chunk):
+        d, i = ops.knn_plain(min(k, r[:, base:base + chunk].shape[1]), r[:, base:base + chunk], q)
+        i = i + base
+        if best_d is not None:
+            d, order = torch.sort(torch.cat([best_d, d], dim=-1), dim=-1, stable=True)
+            i = torch.cat([best_i, i], dim=-1).gather(-1, order)
+        best_d, best_i = d[..., :k], i[..., :k]
+    return best_d, best_i
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 7, 50])
+@pytest.mark.parametrize("k", [5, 16])
+def test_plain_knn_chunk_merge_matches_jax(k, chunk):
+    """The merge that the kernel's split route relies on, pinned on the
+    CPU: the reference points taken in chunks of ``chunk`` and the chunks'
+    k-lists merged by (distance, index), on clouds whose duplicated points
+    (equal distances) fall in different chunks. Bit-equal to the port's
+    unchunked kNN, indices equal to JAX's diff-form kNN and to the Pallas
+    kernel in interpret mode, and each query on a point takes it and its
+    copy first, lower index first."""
+    r, q, ji, pi = _merge_case(k)
+    whole_d, whole_i = ops.knn_with_distance(k, _t(r), _t(q))
+    d, i = _chunked_knn(k, _t(r), _t(q), chunk)
+    assert torch.equal(d, whole_d) and torch.equal(i, whole_i)
+    np.testing.assert_array_equal(i.numpy(), ji)
+    np.testing.assert_array_equal(i.numpy(), pi)
+    on = np.arange(0, 60, 3)
+    np.testing.assert_array_equal(i[:, :20, 0].numpy(), np.broadcast_to(on, (2, 20)))
+    np.testing.assert_array_equal(i[:, :20, 1].numpy(), np.broadcast_to(on + 60, (2, 20)))
 
 
 # --------------------------------------------------------------------- FPS
