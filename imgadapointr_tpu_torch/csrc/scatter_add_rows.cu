@@ -1,93 +1,459 @@
 // Batched row scatter-add with index clamp:
 //     out[b, clamp(idx[b, s], 0, rows - 1), :] += vals[b, s, :]
-// into a zeroed (B, rows, C) float32 output.
+// into a (B, rows, C) float32 output that starts at zero.
 //
 // Replaces: imgadapointr_tpu/ops/pallas/scatter_rows.py:scatter_add_rows_pallas
 // (`_scatter_kernel`). The TPU has no scatter, so that kernel multiplies
 // one-hot masks on the matrix unit and splits the index in hi and lo parts,
-// within VMEM limits of C <= 8 and rows <= 16384. A Hopper thread adds to
-// any address, so this kernel is one atomicAdd per element and has neither
-// limit. It serves the two cross terms of the chamfer backward (C = 3) and
-// the backward of the row gather (C up to the model width). The index is
-// clamped as the gather clamps it, so the cotangent of an out-of-range
-// index lands on the clamped row
+// within VMEM limits of C <= 8 and rows <= 16384; it is deterministic. This
+// kernel serves the two cross terms of the chamfer backward (C = 3) and the
+// backward of the row gather (C up to the model width), and has neither
+// limit. The index is clamped as the gather clamps it, so the cotangent of
+// an out-of-range index lands on the clamped row
 // (imgadapointr_tpu/ops/pallas/gather_rows.py:214-216).
 //
-// Sum order: float32 atomics add in whatever order the blocks run, so a
-// row that receives several contributions can differ in its last bits from
-// run to run, and so can a gradient that goes through it. The TPU kernel
-// already sums in another order than XLA's scatter; the contract is
-// agreement to float32 rounding, and bit-equality where every row receives
-// at most one contribution. A deterministic design (sort by index, then a
-// segmented sum) is left to a later redesign.
+// Sum order: every output element is the float32 sum of its contributions
+// in increasing source order, ((0 + v_s1) + v_s2) + ..., as the plain
+// version (PyTorch's CPU scatter_add_) takes it. So the kernel is bit-equal
+// to the plain version on the CPU, and two runs give the same bits. There
+// are no atomics on the values and no zeroing pass: each output element is
+// written once, a row with no source as zero.
 //
 // Bound on the H100: bytes. Each value is read once and each output
 // element written once (plus the indices); there is one add per value.
-// Design: one thread per (source row, 4 channels) with a 16-byte load and
-// one 16-byte vector atomic (Hopper's float4 atomicAdd) where C % 4 == 0
-// and both pointers allow it, else one thread per element; the
-// output is zeroed on the same stream before the launch; offsets are 64-bit
-// (16 * 16384 * 8 rows of 384 floats do not fit 32).
+// Design: destination-major, one kernel. Block (b, k) owns the destination
+// span [k span, (k + 1) span) of batch element b, span = 32 << shift, so
+// that the spans of a batch fill the card; it needs nothing from other
+// blocks.
+// - (F) It reads all S indices of b: warp w takes a contiguous 32nd of the
+//   sources and keeps, in order, those that land in the span (a ballot
+//   compaction), counting each destination (shared atomics: a count does
+//   not depend on the order of its adds); a scan of the counts gives each
+//   destination's end in the sorted list.
+// - (R) A stable radix sort of that list by destination, 5 bits a pass
+//   from the lowest: in each pass warp w takes a contiguous 32nd of the
+//   list in order, ranks its lanes by ballots of the digit's bits, and the
+//   block scans the (digit, warp) counts in warp order. The list is then
+//   the span's sources by destination, then by source, and a skew of the
+//   destinations (many sources to one row) spreads evenly over the warps.
+// - (S) The sums. The block stages windows of the list's values in shared
+//   memory, every thread loading (16-byte chunks where C % 4 == 0 and the
+//   pointers allow it, as gather_rows.cu), then one thread a (row, chunk)
+//   adds its row's values in order from there and writes the row once. A
+//   row of thousands of sources (the chamfer cross terms at a random init
+//   send 2600-3000 sources to one row) then costs a chain of adds, not a
+//   chain of loads; a row that runs past a window carries its sums on.
+// On the train steps' calls (S <= 16384, spans <= 16384 destinations) the
+// counts, both lists and the staging live in shared memory, a block taking
+// all that it may have; larger calls keep the counts and lists in int32
+// scratch the wrapper allocates (scatter_add_rows_scratch entries) and sum
+// each row by a group of lanes sized to it, two loads in flight.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBins = kWarps;  // destination ranges, one per warp, for the counts' scan
+constexpr int kDigitBits = 5, kDigits = 1 << kDigitBits;  // the radix sort's digits
+// the shared route: spans and sources up to 16384 (14 bits each when packed)
+constexpr int64_t kSharedSpan = 16384, kSharedSources = 16384;
+constexpr int64_t kSpanBlocks = 128;  // blocks to aim for over the batch
+// chunks of a row a lane takes: 16-byte (V = 4) or 4-byte (V = 1) ones
 template <int V>
-__global__ void scatter_add_rows_kernel(const float* __restrict__ vals,
-                                        const int64_t* __restrict__ idx,
-                                        float* __restrict__ out, int64_t S,
-                                        int64_t rows, int64_t width,
-                                        int64_t total) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += stride) {
-    const int64_t row = t / width;  // flat (b, s)
-    const int64_t c = t - row * width;
-    const int64_t b = row / S;
-    int64_t m = idx[row];
-    m = m < 0 ? 0 : (m >= rows ? rows - 1 : m);
-    float* dst = out + ((b * rows + m) * width + c) * V;
-    if (V == 4) {
-      // one 16-byte reduction (red.global.add.v4.f32, sm_90 and later)
-      atomicAdd(reinterpret_cast<float4*>(dst),
-                reinterpret_cast<const float4*>(vals)[t]);
-    } else {
-      atomicAdd(dst, vals[t]);
+constexpr int kChunks = V == 4 ? 2 : 4;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int clamp_row(int64_t m, int rows) {
+  return (int)(m < 0 ? 0 : (m >= rows ? rows - 1 : m));
+}
+
+__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+__device__ __forceinline__ void store(float4* p, const float (&a)[4]) {
+  *p = make_float4(a[0], a[1], a[2], a[3]);
+}
+__device__ __forceinline__ void store(float* p, const float (&a)[1]) { *p = a[0]; }
+
+// The live lanes whose digit equals this lane's, by one ballot per digit
+// bit: deterministic, and cheaper than __match_any_sync where most digits
+// in a warp differ.
+__device__ __forceinline__ unsigned peers_of(unsigned digit, unsigned live) {
+  unsigned peers = live;
+#pragma unroll
+  for (int i = 0; i < kDigitBits; ++i) {
+    const unsigned bit = (digit >> i) & 1u;
+    const unsigned set = __ballot_sync(kFull, bit);
+    peers &= bit ? set : ~set;
+  }
+  return peers;
+}
+
+// kShared: the counts (span ints) and the span's sources (list, and part,
+// which the radix passes alternate with; S ints each) in dynamic shared
+// memory, each entry packed as source | (destination - span start) << 14,
+// then the sums' staging in the rest of it; else the counts and the two
+// lists in this block's share of the int32 scratch, entries the bare
+// source, destinations read again from idx. V = 4: 16-byte chunks of a row
+// (width = C / 4 of them), V = 1: single floats (width = C).
+template <bool kShared, int V>
+__global__ void __launch_bounds__(kThreads)
+    scatter_add_rows_kernel(const float* __restrict__ vals, const int64_t* __restrict__ idx,
+                            float* __restrict__ out, int* __restrict__ scratch, int S,
+                            int rows, int shift, int width, int group, int smem_words) {
+  typedef typename std::conditional<V == 4, float4, float>::type T;
+  extern __shared__ int4 dyn4[];  // 16-byte aligned
+  int* dyn = reinterpret_cast<int*>(dyn4);
+  __shared__ int bin_count[kBins], bin_start[kBins], warp_first[kWarps], warp_below[kWarps];
+  __shared__ int wcnt[kDigits][kWarps + 1];  // [digit][warp]
+  __shared__ int span_n, span_below;
+  const int64_t b = blockIdx.x;
+  const int span = kBins << shift;
+  const int lo = blockIdx.y * span, nrow = min(span, rows - lo);
+  idx += b * S;
+  const T* src = reinterpret_cast<const T*>(vals) + b * S * (int64_t)width;
+  T* dst = reinterpret_cast<T*>(out) + (b * rows + lo) * (int64_t)width;
+  // per destination - lo: its count, then its first entry, then its end
+  int* mine = kShared ? nullptr : scratch + b * ((int64_t)rows + 2 * S);  // b's counts, list, part
+  int* count = kShared ? dyn : mine + lo;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const unsigned lt = (1u << lane) - 1;
+  auto pack = [&](int s, int dl) { return kShared ? s | dl << 14 : s; };
+  auto source = [&](int e) { return kShared ? e & 0x3fff : e; };
+  auto dl_of = [&](int e) { return kShared ? e >> 14 : clamp_row(idx[e], rows) - lo; };
+  for (int r = tid; r < nrow; r += kThreads) count[r] = 0;
+
+  // (F) the span's sources in order: warp w takes the contiguous sources
+  // [w per, (w + 1) per), counts those in the span (and below it), and
+  // after the scan of the warps' counts writes them to the list (in the
+  // scratch, at the span's place: after the sources below it)
+  const int per = (S + kWarps - 1) / kWarps;
+  const int s0 = min(warp * per, S), s1 = min(s0 + per, S);
+  int* dcache = dyn + span + S;  // shared route: each source's destination, until (R)
+  int n_in = 0, n_below = 0;
+  for (int base = s0; base < s1; base += 4 * 32) {  // four loads in flight
+    int d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int s = base + 32 * u + lane;
+      d[u] = s < s1 ? clamp_row(idx[s], rows) : rows;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int s = base + 32 * u + lane;
+      if (kShared && s < s1) dcache[s] = d[u];
+      n_in += __popc(__ballot_sync(kFull, d[u] >= lo && d[u] < lo + nrow));
+      n_below += __popc(__ballot_sync(kFull, d[u] < lo));
+    }
+  }
+  if (lane == 0) warp_first[warp] = n_in, warp_below[warp] = n_below;
+  __syncthreads();
+  if (warp == 0) {  // kWarps == 32
+    const int c = warp_first[lane];
+    const int incl = warp_inclusive_scan(c, lane);
+    warp_first[lane] = incl - c;
+    const int below = __reduce_add_sync(kFull, warp_below[lane]);
+    if (lane == 31) span_n = incl, span_below = below;
+  }
+  __syncthreads();
+  const int n = span_n;
+  int* list = kShared ? dyn + span : mine + rows + span_below;
+  int* part = kShared ? dyn + span + S : mine + rows + S + span_below;
+  int at = warp_first[warp];
+  for (int base = s0; base < s1; base += 32) {
+    const int s = base + lane;
+    const int d = s < s1 ? (kShared ? dcache[s] : clamp_row(idx[s], rows)) : rows;
+    const bool in = d >= lo && d < lo + nrow;
+    const unsigned ins = __ballot_sync(kFull, in);
+    if (in) {
+      list[at + __popc(ins & lt)] = pack(s, d - lo);
+      atomicAdd(&count[d - lo], 1);
+    }
+    at += __popc(ins);
+  }
+  __syncthreads();
+
+  // each destination's end in the sorted list: warp w scans the counts of
+  // destinations [w 2^shift, (w + 1) 2^shift) after the warps before it
+  const int rlo = min(warp << shift, nrow), rhi = min(rlo + (1 << shift), nrow);
+  int total = 0;
+  for (int r = rlo + lane; r < rhi; r += 32) total += count[r];
+  total = __reduce_add_sync(kFull, total);
+  if (lane == 0) bin_count[warp] = total;
+  __syncthreads();
+  if (warp == 0) {
+    const int c = bin_count[lane];
+    bin_start[lane] = warp_inclusive_scan(c, lane) - c;
+  }
+  __syncthreads();
+  int running = bin_start[warp];
+  for (int r0 = rlo; r0 < rhi; r0 += 32) {
+    const int r = r0 + lane;
+    const int c = r < rhi ? count[r] : 0;
+    const int incl = warp_inclusive_scan(c, lane);
+    if (r < rhi) count[r] = running + incl;
+    running += __shfl_sync(kFull, incl, 31);
+  }
+
+  // (R) a stable radix sort of the list by destination - lo, 5 bits a pass
+  // from the lowest: in each pass warp w takes a contiguous 32nd of the
+  // list in order, ranks its lanes by ballots of the digit's bits, and the
+  // block scans the (digit, warp) counts digit-major, warp-minor, so every
+  // pass keeps the order of equal digits (and any skew of the destinations
+  // spreads evenly over the warps)
+  const int dbits = nrow <= 1 ? 0 : 32 - __clz(nrow - 1);
+  const int lper = (n + kWarps - 1) / kWarps;
+  const int i0 = min(warp * lper, n), i1 = min(i0 + lper, n);
+  int* from = list;
+  int* to = part;
+  for (int sh = 0; sh < dbits; sh += kDigitBits) {
+    wcnt[lane][warp] = 0;
+    __syncwarp();
+    for (int base = i0; base < i1; base += 32) {  // the warp's count per digit
+      const int i = base + lane;
+      const bool live = i < i1;
+      const int digit = live ? (dl_of(from[i]) >> sh) & (kDigits - 1) : 0;
+      const unsigned peers = peers_of((unsigned)digit, __ballot_sync(kFull, live));
+      if (live && (peers & lt) == 0) wcnt[digit][warp] += __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    {  // thread (digit = warp, warp' = lane): the warps' first entries in the digit
+      const int c = wcnt[warp][lane];
+      const int incl = warp_inclusive_scan(c, lane);
+      wcnt[warp][lane] = incl - c;
+      if (lane == 31) bin_count[warp] = incl;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int c = bin_count[lane];
+      bin_start[lane] = warp_inclusive_scan(c, lane) - c;
+    }
+    __syncthreads();
+    for (int base = i0; base < i1; base += 32) {
+      const int i = base + lane;
+      const bool live = i < i1;
+      const int e = live ? from[i] : 0;
+      const int digit = live ? (dl_of(e) >> sh) & (kDigits - 1) : 0;
+      const unsigned peers = peers_of((unsigned)digit, __ballot_sync(kFull, live));
+      const int rank = __popc(peers & lt);
+      const int pos = live ? bin_start[digit] + wcnt[digit][warp] + rank : 0;
+      __syncwarp();
+      if (live && rank == 0) wcnt[digit][warp] += __popc(peers);
+      __syncwarp();
+      if (live) to[pos] = e;
+    }
+    __syncthreads();
+    int* t = from;
+    from = to;
+    to = t;
+  }
+  if (from != list) {  // an odd number of passes: the sorted list back in place
+    for (int i = tid; i < n; i += kThreads) list[i] = from[i];
+    __syncthreads();
+  }
+
+  // (S) each row's sources in order: entries [end of the row before, end)
+  // On the shared route the block stages windows of the list's values in
+  // shared memory, all threads loading, then one thread a (row, chunk)
+  // adds its row's values in order from there: a long row costs its chain
+  // of adds, not a chain of loads. A row that runs past a window carries its
+  // sums to the next (two buffers, by window parity).
+  const int stage0 = (span + S + 3) & ~3;  // 16-byte aligned, after the list
+  const int window = kShared ? (smem_words - stage0 - 2 * V * width) / (V * width) : 0;
+  if (window >= 32) {
+    T* stage = reinterpret_cast<T*>(dyn + stage0);
+    T* carry = stage + (int64_t)window * width;  // [2][width]
+    for (int r = tid; r < nrow; r += kThreads)  // rows with no source
+      if ((r == 0 ? 0 : count[r - 1]) == count[r])
+        for (int k = 0; k < width; ++k) dst[(int64_t)r * width + k] = T{};
+    auto row_of = [&](int e) {  // the row of entry e: the first whose end is past e
+      int a = 0, z = nrow - 1;
+      while (a < z) {
+        const int m = (a + z) >> 1;
+        if (count[m] > e) z = m;
+        else a = m + 1;
+      }
+      return a;
+    };
+    for (int e0 = 0, parity = 0; e0 < n; e0 += window, parity ^= 1) {
+      const int e1 = min(n, e0 + window);
+#pragma unroll 8
+      for (int q = tid; q < (e1 - e0) * width; q += kThreads) {
+        const int e = e0 + q / width;
+        stage[q] = src[(int64_t)source(list[e]) * width + (q - (e - e0) * width)];
+      }
+      __syncthreads();
+      const int r0 = row_of(e0), r1 = row_of(e1 - 1) + 1;
+      for (int q = tid; q < (r1 - r0) * width; q += kThreads) {
+        const int r = r0 + q / width, k = q - (r - r0) * width;
+        const int rb = r == 0 ? 0 : count[r - 1], re = count[r];
+        float acc[V] = {};
+        if (rb < e0) {  // the row began in the window before
+          const T c = carry[parity * width + k];
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = reinterpret_cast<const float*>(&c)[v];
+        }
+        const T* from = stage + (int64_t)(max(rb, e0) - e0) * width + k;
+        int e = max(rb, e0);
+        const int z = min(re, e1);
+        for (; e + 4 <= z; e += 4, from += 4 * width) {  // four loads ahead of the adds
+          const T x[4] = {from[0], from[width], from[2 * width], from[3 * width]};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              acc[v] = __fadd_rn(acc[v], reinterpret_cast<const float*>(&x[u])[v]);
+        }
+        for (; e < z; ++e, from += width) {
+          const T x = *from;
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = __fadd_rn(acc[v], reinterpret_cast<const float*>(&x)[v]);
+        }
+        if (re <= e1) store(dst + (int64_t)r * width + k, acc);
+        else store(carry + (parity ^ 1) * width + k, acc);
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  // otherwise a group of lanes sized to the row, each lane up to kChunks of
+  // its chunks, two sources' loads in flight
+  const int rows_step = 32 / group;
+  const int gl = lane % group;
+  for (int r = warp * rows_step + lane / group; r < nrow; r += kWarps * rows_step) {
+    const int beg = r == 0 ? 0 : count[r - 1], stop = count[r];
+    for (int c0 = gl; c0 < width; c0 += kChunks<V> * group) {
+      float acc[kChunks<V>][V] = {};
+      int nc = 0;  // this lane's chunks: c0 + k * group, k < nc
+      while (nc < kChunks<V> && c0 + nc * group < width) ++nc;
+      int i = beg;
+      for (; i + 2 <= stop; i += 2) {  // two sources' loads in flight, added in order
+        const T* r0 = src + (int64_t)source(list[i]) * width + c0;
+        const T* r1 = src + (int64_t)source(list[i + 1]) * width + c0;
+        T v0[kChunks<V>], v1[kChunks<V>];
+#pragma unroll
+        for (int k = 0; k < kChunks<V>; ++k)
+          if (k < nc) {
+            v0[k] = r0[k * group];
+            v1[k] = r1[k * group];
+          }
+#pragma unroll
+        for (int k = 0; k < kChunks<V>; ++k)
+          if (k < nc)
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              acc[k][e] = __fadd_rn(acc[k][e], reinterpret_cast<const float*>(&v0[k])[e]);
+              acc[k][e] = __fadd_rn(acc[k][e], reinterpret_cast<const float*>(&v1[k])[e]);
+            }
+      }
+      if (i < stop) {
+        const T* r0 = src + (int64_t)source(list[i]) * width + c0;
+#pragma unroll
+        for (int k = 0; k < kChunks<V>; ++k)
+          if (k < nc) {
+            const T v = r0[k * group];
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              acc[k][e] = __fadd_rn(acc[k][e], reinterpret_cast<const float*>(&v)[e]);
+          }
+      }
+      T* row = dst + (int64_t)r * width + c0;
+#pragma unroll
+      for (int k = 0; k < kChunks<V>; ++k)
+        if (k < nc) store(row + k * group, acc[k]);
     }
   }
 }
 
-}  // namespace
+// spans of 32 << shift destinations: the least shift that leaves at most
+// kSpanBlocks / B spans (and at most 65535) for each batch element
+int span_shift(int64_t B, int64_t rows) {
+  int64_t want = B >= kSpanBlocks ? 1 : kSpanBlocks / B;
+  if (want > 65535) want = 65535;
+  int shift = 0;
+  while ((rows + ((int64_t)kBins << shift) - 1) / ((int64_t)kBins << shift) > want) ++shift;
+  return shift;
+}
 
-// vals (B, S, C) float32, idx (B, S) int64 -> out (B, rows, C) float32,
-// zeroed here.
-extern "C" int scatter_add_rows_f32(const float* vals, const int64_t* idx,
-                                    float* out, int64_t B, int64_t S,
-                                    int64_t rows, int64_t C, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t out_elems = B * rows * C;
-  if (out_elems == 0) return 0;
-  cudaError_t rc = cudaMemsetAsync(out, 0, out_elems * sizeof(float), s);
-  if (rc != cudaSuccess) return (int)rc;
-  if (S == 0) return 0;
+bool shared_route(int64_t S, int64_t span) { return span <= kSharedSpan && S <= kSharedSources; }
+
+template <bool kShared>
+cudaError_t launch(const float* vals, const int64_t* idx, float* out, int* scratch,
+                   int64_t B, int64_t S, int64_t rows, int64_t C, int shift,
+                   size_t smem, cudaStream_t st) {
   const bool vec4 =
       (C % 4 == 0) &&
-      ((reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(out)) %
-           16 ==
-       0);
+      ((reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(out)) % 16 == 0);
   const int64_t width = vec4 ? C / 4 : C;
-  const int64_t total = B * S * width;
-  const int threads = 256;
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride covers the rest
+  const int chunks = vec4 ? kChunks<4> : kChunks<1>;
+  int group = 1;  // lanes a row: each takes at most `chunks` chunks
+  while (group < 32 && (int64_t)group * chunks < width) group <<= 1;
+  const int64_t span = (int64_t)kBins << shift;
+  const dim3 grid((unsigned)B, (unsigned)((rows + span - 1) / span));
+  const int words = (int)(smem / sizeof(int));
   if (vec4) {
-    scatter_add_rows_kernel<4><<<(unsigned)blocks, threads, 0, s>>>(
-        vals, idx, out, S, rows, width, total);
+    scatter_add_rows_kernel<kShared, 4><<<grid, kThreads, smem, st>>>(
+        vals, idx, out, scratch, (int)S, (int)rows, shift, (int)width, group, words);
   } else {
-    scatter_add_rows_kernel<1><<<(unsigned)blocks, threads, 0, s>>>(
-        vals, idx, out, S, rows, width, total);
+    scatter_add_rows_kernel<kShared, 1><<<grid, kThreads, smem, st>>>(
+        vals, idx, out, scratch, (int)S, (int)rows, shift, (int)width, group, words);
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The int32 scratch entries a call needs: none on the shared route,
+// B * (rows + 2 S) otherwise.
+extern "C" int64_t scatter_add_rows_scratch(int64_t B, int64_t S, int64_t rows) {
+  const int64_t span = (int64_t)kBins << span_shift(B, rows);
+  return shared_route(S, span) ? 0 : B * (rows + 2 * S);
+}
+
+// vals (B, S, C) float32, idx (B, S) int64 -> out (B, rows, C) float32;
+// scratch: scatter_add_rows_scratch(B, S, rows) int32 entries.
+extern "C" int scatter_add_rows_f32(const float* vals, const int64_t* idx,
+                                    float* out, int* scratch, int64_t B,
+                                    int64_t S, int64_t rows, int64_t C,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B * rows * C == 0) return 0;
+  if (S >= (1ll << 30) || rows >= (1ll << 30) || C >= (1ll << 30)) return (int)cudaErrorInvalidValue;
+  const int shift = span_shift(B, rows);
+  if (!shared_route(S, (int64_t)kBins << shift))
+    return (int)launch<false>(vals, idx, out, scratch, B, S, rows, C, shift, 0, st);
+  // the shared route takes all the shared memory a block may have: what the
+  // sort leaves is the sum's staging (set once per device)
+  static int smem[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& bytes = smem[dev & 63];
+  if (bytes == 0) {
+    int optin = 0;
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, scatter_add_rows_kernel<true, 4>);
+    const int most = optin - (int)attr.sharedSizeBytes;
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(scatter_add_rows_kernel<true, 4>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(scatter_add_rows_kernel<true, 1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+    bytes = most;
+  }
+  return (int)launch<true>(vals, idx, out, scratch, B, S, rows, C, shift, (size_t)bytes, st);
 }

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "knn_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "fps_f32": [_P, _P, _I64, _I64, _I64, _P],
     "nn_bidir_argmin_f32": [_P, _P, _P, _I64, _I64, _I64, _P],
-    "scatter_add_rows_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "scatter_add_rows_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "nn_one_direction_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "weighted_gather_sum_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "weighted_gather_sum_dfeats_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
@@ -161,6 +161,8 @@ def library() -> ctypes.CDLL:
                 lib.auction_top2_chunks.restype = ctypes.c_int64
                 lib.knn_chunks.argtypes = [_I64, _I64, _I64, _I64]
                 lib.knn_chunks.restype = ctypes.c_int64
+                lib.scatter_add_rows_scratch.argtypes = [_I64, _I64, _I64]
+                lib.scatter_add_rows_scratch.restype = ctypes.c_int64
                 _lib = lib
                 _entries.update((name, getattr(lib, name)) for name in _SIGNATURES)
     return _lib

@@ -127,11 +127,21 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def scatter_add_rows_plain(n_rows: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`scatter_add_rows`: clamp, then
-    ``Tensor.scatter_add_`` into zeros."""
+    ``Tensor.scatter_add_`` into zeros. On the CPU this sums each output
+    element's contributions in increasing source order, which the kernel
+    repeats (``tests/test_torch_scatter_mxu.py`` holds both to that order)."""
     B, S, C = vals.shape
     out = torch.zeros(B, n_rows, C, dtype=vals.dtype, device=vals.device)
     idx = idx.clamp(0, n_rows - 1)
     return out.scatter_add_(1, idx.unsqueeze(-1).expand(B, S, C), vals)
+
+
+@functools.lru_cache(maxsize=None)
+def _scatter_scratch(B: int, S: int, n_rows: int) -> int:
+    """The int32 scratch entries the scatter-add kernel takes for (B, S,
+    rows): none where its sort fits in shared memory (every train step's
+    call), else room for its counts and source lists."""
+    return _build.library().scatter_add_rows_scratch(B, S, n_rows)
 
 
 def scatter_add_rows(n_rows: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -139,10 +149,12 @@ def scatter_add_rows(n_rows: int, idx: torch.Tensor, vals: torch.Tensor) -> torc
     zeros; idx (B, S) int64, vals (B, S, C) -> (B, n_rows, C).
 
     The two cross terms of the chamfer backward and the backward of
-    :func:`gather_rows`. On the card the kernel adds with float32 atomics:
-    a row that receives several contributions agrees with the plain version
-    to float32 rounding and can differ in its last bits between two runs; a
-    row with at most one contribution is bit-equal.
+    :func:`gather_rows`. On the card one kernel sorts each batch element's
+    sources by destination, stably (in shared memory on every train step's
+    call, else in int32 scratch allocated here), then adds each row's
+    sources in source order: every element is the plain version's float32
+    sum in the same order, so the kernel is bit-equal to the plain version
+    on the CPU and two runs give the same bits.
     """
     if vals.dim() != 3 or idx.dim() != 2 or idx.shape != vals.shape[:2]:
         raise ValueError(
@@ -160,9 +172,12 @@ def scatter_add_rows(n_rows: int, idx: torch.Tensor, vals: torch.Tensor) -> torc
         raise ValueError("scatter_add_rows: idx must be contiguous on the values' device")
     B, S, C = vals.shape
     out = torch.empty(B, n_rows, C, dtype=vals.dtype, device=vals.device)
+    n_scratch = _scatter_scratch(B, S, n_rows)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=vals.device) if n_scratch else None
     _build.launch(
         "scatter_add_rows", "scatter_add_rows_f32", vals.device,
-        vals.data_ptr(), idx.data_ptr(), out.data_ptr(), B, S, n_rows, C,
+        vals.data_ptr(), idx.data_ptr(), out.data_ptr(), scratch.data_ptr() if n_scratch else None,
+        B, S, n_rows, C,
     )
     return out
 
