@@ -15,9 +15,10 @@ Phases; any failure exits non-zero and prints no result line:
    (identical clouds, dense sphere, all-equal points, out-of-range
    indices, masks).
    Indices must be equal and values bit-equal (tolerance 0): each kernel
-   repeats its plain version's arithmetic. The scatter-add sums each
-   element in source order, so it is held to the plain version run on the
-   CPU, bit for bit, and two launches to each other; the weighted gather-sum
+   repeats its plain version's arithmetic. The scatter-add and the
+   gather-sum's ``dfeats`` sum each element in source order, so they are
+   held to the plain version run on the CPU, bit for bit, and two launches
+   to each other; the weighted gather-sum
    sums in another order than its plain version and is held to 1e-5 of each
    element's sum of absolute terms; the matmul-form argmin sums on the
    tensor cores in their own order and is held to its plain version by a
@@ -28,7 +29,8 @@ Phases; any failure exits non-zero and prints no result line:
    scatter-add: one train step's; the one-direction argmin: one test
    cloud's; the weighted gather-sum: one superset request's). The row
    gather, the bidirectional argmin, the gather-sum's ``dweights``, the
-   auction top-2, kNN and FPS are also timed with the host taken out, by
+   auction top-2, kNN, FPS, the one-direction argmin and ``dfeats`` are
+   also timed with the host taken out, by
    replaying their calls and their library call captured in a CUDA graph,
    in turns with the host loop on the same card; their ``ms`` and
    ``library_ms`` are the replay times (the top-2 also at its smallest
@@ -40,9 +42,11 @@ Phases; any failure exits non-zero and prints no result line:
    cost of one 1-row call on its direct route and on the route through
    the autograd Function and ``launch_with_context`` (the launch path as it
    was before it resolved entries once and skipped the lock and the
-   device context); the scatter-add and the matmul-form argmin are timed
-   by ``time_scatter`` and ``time_mxu`` (public ops only, so they time an
-   older tree too), the latter beside the exact kernel's replay time;
+   device context); the scatter-add, the matmul-form argmin, the
+   one-direction argmin and ``dfeats`` are timed by ``time_scatter``,
+   ``time_mxu``, ``time_one_direction`` and ``time_dfeats`` (public ops
+   only, so they time an older tree too), the matmul-form beside the exact
+   kernel's replay time;
 3. the serving path at full width: ``cfgs/PCN_models/AdaPoinTr.yaml`` with
    seeded weights answers ``REQUESTS`` requests of ``B`` synthetic PCN
    partial clouds (2048 points) with coarse (512) and fine (16384)
@@ -93,8 +97,10 @@ Phases; any failure exits non-zero and prints no result line:
    ``TRAIN_STEPS`` steps of ``Runner.train_step`` at batch 16 with their
    table (8 fused 3-NN calls and 8 of their VJP, ``dfeats``), the offset
    nets and ``proj_v_off`` without gradient and untouched, every other
-   trainable parameter moved, a profiled step, and one step at batch 2
-   against the CPU (loss 1e-4, gradient norm 1e-3, relative).
+   trainable parameter moved, a profiled step, one step's gradients twice
+   from the same state (``step_determinism``: every parameter's gradient
+   must be bit-equal), and one step at batch 2 against the CPU (loss 1e-4,
+   gradient norm 1e-3, relative).
 
 Phase 2 holds kNN at every request, step, normals and deformable shape
 and at probes (M below 32, M off the tile and the chunk, one query, k =
@@ -106,8 +112,13 @@ past the limit), both the same bits in two runs.
 Phase 2 also holds the gather-sum's two backward kernels (``dfeats`` at
 K = 3 on the deformable train step's 3-NN shapes, where it is the
 interpolation's VJP, and both at the superset train step's GDANet shapes
-and the tiny config's; 1e-5 of each element's absolute sum, ``dweights``
-the same bits in two runs), the auction top-2
+and the tiny config's; ``dfeats`` bit-equal to the CPU plain version and
+the same bits in two runs, also with two in three indices out of range,
+every term in one row and a row that no term reaches; ``dweights`` 1e-5 of
+each element's absolute sum, the same bits in two runs), the one-direction
+argmin at the probes of its candidate chunks (points duplicated half a
+cloud apart, a batch element with no valid candidate, N = 1, M = 1, M off
+the chunk, rows that fill the card alone), the auction top-2
 (16384 x 16384 at 16384, about 3500 and about 1060 live rows, a batch of 3
 with counts (0, 1, N), item counts off the kernel's chunk and below one
 chunk, duplicated items whose ties meet in the chunk merge; values
@@ -928,7 +939,13 @@ def time_scatter(calls, g, dev) -> dict:
 def check_one_direction(calls, extra, g, dev):
     """nn_one_direction: unmasked at the chamfer losses' sizes (equal to
     the plain version and to the bidirectional kernel's first direction),
-    then masked, and timed over one test cloud's two masked passes."""
+    then masked, and at the probes of the candidate chunks merged by a 64-bit
+    atomicMin: points duplicated half a cloud apart at 1 x 16384 x 16384
+    (ties across chunks; unmasked every pick a first copy), a batch element
+    with no valid candidate (index 0), one query, one candidate, M off the
+    chunk size, and rows that fill the card alone (one chunk, written
+    directly); a second launch gives the same indices. Timed over one test
+    cloud's two masked calls by ``time_one_direction``."""
     for N, M in ((16384, 16384), (512, 16384)):
         x, y = torch.randn(2, N, 3, generator=g).to(dev), torch.randn(2, M, 3, generator=g).to(dev)
         i = ops.nn_one_direction(x, y)
@@ -945,19 +962,52 @@ def check_one_direction(calls, extra, g, dev):
     i = ops.nn_one_direction(x, y, one)
     require(bool(i[0].eq(12345).all() and i[1].eq(M - 1).all()), "nn_one_direction: one valid y must win everywhere")
     require(torch.equal(i, ops.nn_one_direction_plain(x, y, one)), "nn_one_direction one valid y: differs")
+
+    def held(what, x, y, wy):
+        got = ops.nn_one_direction(x, y, wy)
+        require(torch.equal(got, ops.nn_one_direction_plain(x, y, wy)), f"nn_one_direction {what}: differs from plain")
+        require(torch.equal(got, ops.nn_one_direction(x, y, wy)), f"nn_one_direction {what}: two launches differ")
+        return got
+
+    h = M // 2  # duplicates half a cloud apart, queries on them
+    x, y = sphere(g, 1, N, dev), sphere(g, 1, M, dev)
+    y[:, h:] = y[:, :M - h]
+    x[:, ::2] = y[:, torch.randint(0, M, (len(range(0, N, 2)),), generator=g).to(dev)]
+    require(bool((held("duplicates", x, y, None) < h).all()), "nn_one_direction duplicates: a second copy won")
+    wy = torch.ones(1, M, device=dev)
+    wy[:, :h] = (torch.rand(1, h, generator=g) > 0.5).float().to(dev)
+    held("duplicates, some first copies masked", x, y, wy)
+    x, y = sphere(g, 2, 3000, dev), sphere(g, 2, M, dev)
+    wy = (torch.rand(2, M, generator=g) > 0.5).float().to(dev)
+    wy[1] = 0.0
+    require(bool(held("no valid candidate", x, y, wy)[1].eq(0).all()), "nn_one_direction: no valid y must give 0")
+    for b, n, m in ((1, 1, M), (1, N, 1), (1, 5000, M - 5), (3, 700, 257), (800, 64, 64)):
+        held(f"{b}x{n}x{m}", sphere(g, b, n, dev), sphere(g, b, m, dev),
+             (torch.rand(b, m, generator=g) > 0.3).float().to(dev))
+    t = time_one_direction(N, M, g, dev)
+    pairs = sum(n * m for n, m in calls)
+    return 0.0, t, pairs * OPS_PAIR_ONE_WAY, sum((n + m) * 12 + m * 4 + n * 8 for n, m in calls)
+
+
+def time_one_direction(N: int, M: int, g, dev) -> dict:
+    """nn_one_direction over one test cloud's two masked calls at batch 1
+    (N x M, then M x N), by graph replay and host loop in turns with
+    ``cdist`` and its argmin, and the plain version on the card. Public ops
+    only, so it times an older tree too."""
     x, y = torch.randn(1, N, 3, generator=g).to(dev), torch.randn(1, M, 3, generator=g).to(dev)
     wx, wy = torch.ones(1, N, device=dev), torch.ones(1, M, device=dev)
 
     def both(fn):
         return lambda: (fn(x, y, wy), fn(y, x, wx))
 
-    t = {
-        "ms": cuda_ms(both(ops.nn_one_direction), 10),
-        "plain_ms": cuda_ms(both(ops.nn_one_direction_plain), 2),
-        "library_ms": cuda_ms(lambda: (torch.cdist(x, y).argmin(-1), torch.cdist(y, x).argmin(-1)), 10),
-    }
-    pairs = sum(n * m for n, m in calls)
-    return 0.0, t, pairs * OPS_PAIR_ONE_WAY, sum((n + m) * 12 + m * 4 + n * 8 for n, m in calls)
+    turns = in_turns(both(ops.nn_one_direction),
+                     lambda: (torch.cdist(x, y).argmin(-1), torch.cdist(y, x).argmin(-1)), reps=(50, 10))
+    log(f"phase 2: nn_one_direction over one test cloud's two calls at 1x{N}x{M}, in turns: graph replay "
+        f"{turns['graph'][0]:.4f} ms (cdist + argmin {turns['graph'][1]:.4f} ms), host loop "
+        f"{turns['loop'][0]:.4f} ms ({turns['loop'][1]:.4f} ms); each pair {json.dumps(turns['pairs'])}")
+    return {"ms": turns["graph"][0], "loop_ms": turns["loop"][0],
+            "plain_ms": cuda_ms(both(ops.nn_one_direction_plain), 2),
+            "library_ms": turns["graph"][1], "library_loop_ms": turns["loop"][1]}
 
 
 def check_weighted_gather_sum(calls, extra, g, dev):
@@ -1023,49 +1073,67 @@ def gather_sum_backward_inputs(cases, g, dev, distinct: bool = True) -> list:
 def check_dfeats(calls, extra, g, dev):
     """weighted_gather_sum_dfeats at K = 3 on the deformable train step's
     3-NN shapes (``calls``: (batch, (S, K, M, C)), timed), where it is the
-    interpolation's VJP, and at the superset train step's GDANet shapes and
-    the tiny config's (``extra``), held to 1e-5 of each element's sum of
-    absolute terms (float32 atomics); out-of-range indices add nothing.
-    Library: ``index_add_`` over the materialised (B, S, K, C) terms
-    ``w * g``."""
+    interpolation's VJP, and at the superset train step's GDANet shapes (past
+    16384 terms an element: the sort in scratch) and the tiny config's
+    (``extra``): the kernel adds each row's terms in flat (s, m) order, so it
+    must equal the plain version run on the CPU bit for bit, and a second
+    launch must give the same bits. Probes: two in three indices out of
+    range (they add nothing), every term in one row, and a row that no term
+    reaches. Timed by ``time_dfeats``."""
     inputs = gather_sum_backward_inputs(calls, g, dev, distinct=False)
     inputs += gather_sum_backward_inputs(extra, g, dev)
-    err = 0.0
-    for w, idx, feats, cot in inputs:
-        M = feats.shape[1]
+
+    def held(what, w, idx, cot, M):
         got = ops.weighted_gather_sum_dfeats(w, idx, cot, M)
-        want = ops.weighted_gather_sum_dfeats_plain(w, idx, cot, M)
-        room = 1e-5 * ops.weighted_gather_sum_dfeats_plain(w, idx, cot.abs(), M)
-        require(bool(((got - want).abs() <= room).all()),
-                f"dfeats {tuple(w.shape)} M={M}: beyond 1e-5 of the absolute sum")
-        err = max(err, float((got - want).abs().max()))
+        want = ops.weighted_gather_sum_dfeats_plain(w.cpu(), idx.cpu(), cot.cpu(), M)
+        require(torch.equal(got.cpu(), want), f"dfeats {what}: not bit-equal to the plain version")
+        require(torch.equal(got, ops.weighted_gather_sum_dfeats(w, idx, cot, M)), f"dfeats {what}: two launches differ")
+        return got
+
+    for w, idx, feats, cot in inputs:
+        held(f"{tuple(w.shape)} M={feats.shape[1]} C={cot.shape[-1]}", w, idx, cot, feats.shape[1])
     w, idx, feats, cot = inputs[0]
     M = feats.shape[1]
     bad = idx.clone()  # two in three out of range
     bad[..., 0::3] = -1
     bad[..., 1::3] += M
-    got = ops.weighted_gather_sum_dfeats(w, bad, cot, M)
+    got = held("out-of-range indices", w, bad, cot, M)
     only_valid = ops.weighted_gather_sum_dfeats(w.masked_fill((bad < 0) | (bad >= M), 0.0), bad, cot, M)
-    require(bool(((got - only_valid).abs() <= 1e-5 * ops.weighted_gather_sum_dfeats_plain(
-        w, bad, cot.abs(), M)).all()), "dfeats: an out-of-range index contributed")
-    timed = inputs[:len(calls)]
-    flat = [((i + torch.arange(i.shape[0], device=dev)[:, None, None] * f.shape[1]).reshape(-1), w, f, c)
-            for w, i, f, c in timed]
-
-    def library():
-        for rows, w_, f, c in flat:
-            terms = (w_[..., None] * c[:, :, None, :]).reshape(-1, c.shape[-1])
-            torch.zeros(f.shape[0] * f.shape[1], c.shape[-1], device=dev).index_add_(0, rows, terms)
-
-    t = {
-        "ms": cuda_ms(lambda: [ops.weighted_gather_sum_dfeats(w_, i, c, f.shape[1]) for w_, i, f, c in timed], 50),
-        "plain_ms": cuda_ms(lambda: [ops.weighted_gather_sum_dfeats_plain(w_, i, c, f.shape[1])
-                                     for w_, i, f, c in timed], 20),
-        "library_ms": cuda_ms(library, 20),
-    }
+    require(torch.equal(got, only_valid), "dfeats: an out-of-range index contributed")
+    one = held("every term in one row", w, torch.full_like(idx, 7), cot, M)
+    require(int(one[:, 8:].count_nonzero()) == 0 and int(one[:, :7].count_nonzero()) == 0,
+            "dfeats: every term in one row touched another")
+    got = held("a row no term reaches", w, idx.clamp(1, M - 1), cot, M)
+    require(int(got[:, 0].count_nonzero()) == 0, "dfeats: a row with no term is not zero")
+    t = time_dfeats([(b, (S, M, C)) for b, (S, K, M, C) in calls], g, dev)
     # w, idx and g read once, dfeats written once; a multiply and an add per term
     nbytes = sum(b * (S * K * (4 + 8) + S * C * 4 + M * C * 4) for b, (S, K, M, C) in calls)
-    return err, t, sum(2 * b * S * K * C for b, (S, K, M, C) in calls), nbytes
+    return 0.0, t, sum(2 * b * S * K * C for b, (S, K, M, C) in calls), nbytes
+
+
+def time_dfeats(calls, g, dev) -> dict:
+    """weighted_gather_sum_dfeats over one deformable train step's 3-NN VJP
+    calls ``calls`` ((batch, (S, M, C)), K = 3), by graph replay and host loop
+    in turns with ``index_add_`` over the materialised (B, S, K, C) terms
+    ``w * g``, and the plain version on the card. Public ops only, so it
+    times an older tree too."""
+    timed = [(torch.rand(b, S, 3, generator=g).to(dev), torch.randint(0, M, (b, S, 3), generator=g).to(dev),
+              torch.randn(b, S, C, generator=g).to(dev), M) for b, (S, M, C) in calls]
+    flat = [((i + torch.arange(i.shape[0], device=dev)[:, None, None] * M).reshape(-1), w_, c, M)
+            for w_, i, c, M in timed]
+
+    def library():
+        for rows, w_, c, M in flat:
+            terms = (w_[..., None] * c[:, :, None, :]).reshape(-1, c.shape[-1])
+            torch.zeros(w_.shape[0] * M, c.shape[-1], device=dev).index_add_(0, rows, terms)
+
+    turns = in_turns(lambda: [ops.weighted_gather_sum_dfeats(*a) for a in timed], library, reps=(20, 5))
+    log(f"phase 2: weighted_gather_sum_dfeats over one deformable step's {len(calls)} calls, in turns: graph "
+        f"replay {turns['graph'][0]:.4f} ms (index_add_ {turns['graph'][1]:.4f} ms), host loop "
+        f"{turns['loop'][0]:.4f} ms ({turns['loop'][1]:.4f} ms); each pair {json.dumps(turns['pairs'])}")
+    return {"ms": turns["graph"][0], "loop_ms": turns["loop"][0],
+            "plain_ms": cuda_ms(lambda: [ops.weighted_gather_sum_dfeats_plain(*a) for a in timed], 5),
+            "library_ms": turns["graph"][1], "library_loop_ms": turns["loop"][1]}
 
 
 def check_dweights(calls, extra, g, dev):
@@ -1722,17 +1790,19 @@ def train_phase(config, seed: int, dev, workdir: str) -> dict:
     return counts, summary
 
 
-def step_determinism(runner, batch, epoch_f: float) -> dict:
-    """One flagship train step's gradients (forward in train mode, the
-    model's loss, backward; no optimizer step) taken twice from the same
-    state, batch and jitter noise: whether the predicted clouds, the loss's
-    gradient with respect to them and every parameter's gradient come out
-    bit-equal. The clouds' gradient passes only through the chamfer
-    backward (``nn_distance``'s and the scatter-add's kernels, both
-    deterministic), so it is required bit-equal; and, isolated from the
-    forward, the loss's gradient on the first run's clouds is taken twice
-    more and required bit-equal. The parameters' gradients are read, not
-    required. The model's state and the runner's generator are restored."""
+def step_determinism(runner, batch, epoch_f: float, phase: str = "phase 4", params: bool = False) -> dict:
+    """One train step's gradients (forward in train mode, the model's loss,
+    backward; no optimizer step) taken twice from the same state, batch and
+    jitter noise: whether the predicted clouds, the loss's gradient with
+    respect to them and every parameter's gradient come out bit-equal. The
+    clouds' gradient passes only through the chamfer backward
+    (``nn_distance``'s and the scatter-add's kernels, both deterministic),
+    so it is required bit-equal; and, isolated from the forward, the loss's
+    gradient on the first run's clouds is taken twice more and required
+    bit-equal. With ``params`` (``AdaPoinTr-deform``, whose 3-NN VJP is the
+    deterministic ``dfeats``) every parameter's gradient is required
+    bit-equal too, else read. The model's state and the runner's generator
+    are restored."""
     model = runner.model
     state = {k: v.clone() for k, v in model.state_dict().items()}
     gen = runner.generator.get_state()
@@ -1770,10 +1840,14 @@ def step_determinism(runner, batch, epoch_f: float) -> dict:
            "param_grads_equal": not differ, "param_grads_differing": len(differ), "params_with_grad": len(p1),
            "first_differing": differ[:5],
            "max_abs_param_grad_diff": max((float((p1[n] - p2[n]).abs().max()) for n in differ), default=0.0)}
-    log("phase 4: one train step's gradients twice from the same state: " + json.dumps(out))
+    log(f"{phase}: one train step's gradients twice from the same state: " + json.dumps(out))
     require(out["cloud_grads_equal_fixed_forward"], "the chamfer loss's gradient on fixed clouds differs between runs")
     require(out["cloud_grads_equal"] or not out["clouds_equal"],
             "the chamfer loss's gradient with respect to equal predicted clouds differs between runs")
+    if params:
+        require(out["clouds_equal"] and out["param_grads_equal"],
+                f"{phase}: {len(differ)} parameters' gradients differ between two runs from the same state "
+                f"(first {differ[:5]})")
     return out
 
 
@@ -2042,6 +2116,7 @@ def deform_phase(seed: int, dev, card: str, workdir: str):
     check_trained(runner.model, before, dead=("query_ranking", "encoder.norm", "linear_offset", "proj_v_off"))
     step_prof = profile_run(lambda: timed_step(runner, batches[1 + TRAIN_STEPS], 0.9)[0])
     log("phase 7: one profiled deformable train step: " + json.dumps(step_prof))
+    determinism = step_determinism(runner, batches[1 + TRAIN_STEPS], 0.9, "phase 7", params=True)
     del runner, batches
     torch.cuda.empty_cache()
     step_agree = card_vs_cpu_step(deform_config(), seed, workdir)
@@ -2055,7 +2130,8 @@ def deform_phase(seed: int, dev, card: str, workdir: str):
                "median_step_ms": statistics.median(times) * 1e3,
                "max_memory_allocated_gib": peak / 2**30,
                "profiled_step": {k: v for k, v in step_prof.items() if k != "top"},
-               "card_vs_cpu_step": {k: step_agree[k] for k in ("total_loss_rel_diff", "grad_norm_rel_diff")}}
+               "card_vs_cpu_step": {k: step_agree[k] for k in ("total_loss_rel_diff", "grad_norm_rel_diff")},
+               "step_determinism": determinism}
     return counts, summary
 
 

@@ -25,17 +25,9 @@
 // span [k span, (k + 1) span) of batch element b, span = 32 << shift, so
 // that the spans of a batch fill the card; it needs nothing from other
 // blocks.
-// - (F) It reads all S indices of b: warp w takes a contiguous 32nd of the
-//   sources and keeps, in order, those that land in the span (a ballot
-//   compaction), counting each destination (shared atomics: a count does
-//   not depend on the order of its adds); a scan of the counts gives each
-//   destination's end in the sorted list.
-// - (R) A stable radix sort of that list by destination, 5 bits a pass
-//   from the lowest: in each pass warp w takes a contiguous 32nd of the
-//   list in order, ranks its lanes by ballots of the digit's bits, and the
-//   block scans the (digit, warp) counts in warp order. The list is then
-//   the span's sources by destination, then by source, and a skew of the
-//   destinations (many sources to one row) spreads evenly over the warps.
+// - (F, R) It lists the sources that land in its span and sorts them
+//   stably by destination (span_sort.cuh; the destination of source s is
+//   its clamped index).
 // - (S) The sums. The block stages windows of the list's values in shared
 //   memory, every thread loading (16-byte chunks where C % 4 == 0 and the
 //   pointers allow it, as gather_rows.cu), then one thread a (row, chunk)
@@ -54,31 +46,22 @@
 
 #include <type_traits>
 
+#include "span_sort.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBins = kWarps;  // destination ranges, one per warp, for the counts' scan
-constexpr int kDigitBits = 5, kDigits = 1 << kDigitBits;  // the radix sort's digits
-// the shared route: spans and sources up to 16384 (14 bits each when packed)
-constexpr int64_t kSharedSpan = 16384, kSharedSources = 16384;
+using span_sort::kBins;
+using span_sort::kSharedSources;
+using span_sort::kSharedSpan;
+using span_sort::kThreads;
+using span_sort::kWarps;
 constexpr int64_t kSpanBlocks = 128;  // blocks to aim for over the batch
 // chunks of a row a lane takes: 16-byte (V = 4) or 4-byte (V = 1) ones
 template <int V>
 constexpr int kChunks = V == 4 ? 2 : 4;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int clamp_row(int64_t m, int rows) {
   return (int)(m < 0 ? 0 : (m >= rows ? rows - 1 : m));
-}
-
-__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(kFull, v, o);
-    if (lane >= o) v += u;
-  }
-  return v;
 }
 
 __device__ __forceinline__ void store(float4* p, const float (&a)[4]) {
@@ -86,27 +69,10 @@ __device__ __forceinline__ void store(float4* p, const float (&a)[4]) {
 }
 __device__ __forceinline__ void store(float* p, const float (&a)[1]) { *p = a[0]; }
 
-// The live lanes whose digit equals this lane's, by one ballot per digit
-// bit: deterministic, and cheaper than __match_any_sync where most digits
-// in a warp differ.
-__device__ __forceinline__ unsigned peers_of(unsigned digit, unsigned live) {
-  unsigned peers = live;
-#pragma unroll
-  for (int i = 0; i < kDigitBits; ++i) {
-    const unsigned bit = (digit >> i) & 1u;
-    const unsigned set = __ballot_sync(kFull, bit);
-    peers &= bit ? set : ~set;
-  }
-  return peers;
-}
-
-// kShared: the counts (span ints) and the span's sources (list, and part,
-// which the radix passes alternate with; S ints each) in dynamic shared
-// memory, each entry packed as source | (destination - span start) << 14,
-// then the sums' staging in the rest of it; else the counts and the two
-// lists in this block's share of the int32 scratch, entries the bare
-// source, destinations read again from idx. V = 4: 16-byte chunks of a row
-// (width = C / 4 of them), V = 1: single floats (width = C).
+// kShared: the counts and the span's sources in dynamic shared memory
+// (span_sort.cuh), then the sums' staging in the rest of it; else the counts
+// and lists in this block's share of the int32 scratch. V = 4: 16-byte
+// chunks of a row (width = C / 4 of them), V = 1: single floats (width = C).
 template <bool kShared, int V>
 __global__ void __launch_bounds__(kThreads)
     scatter_add_rows_kernel(const float* __restrict__ vals, const int64_t* __restrict__ idx,
@@ -115,154 +81,18 @@ __global__ void __launch_bounds__(kThreads)
   typedef typename std::conditional<V == 4, float4, float>::type T;
   extern __shared__ int4 dyn4[];  // 16-byte aligned
   int* dyn = reinterpret_cast<int*>(dyn4);
-  __shared__ int bin_count[kBins], bin_start[kBins], warp_first[kWarps], warp_below[kWarps];
-  __shared__ int wcnt[kDigits][kWarps + 1];  // [digit][warp]
-  __shared__ int span_n, span_below;
   const int64_t b = blockIdx.x;
   const int span = kBins << shift;
   const int lo = blockIdx.y * span, nrow = min(span, rows - lo);
   idx += b * S;
   const T* src = reinterpret_cast<const T*>(vals) + b * S * (int64_t)width;
   T* dst = reinterpret_cast<T*>(out) + (b * rows + lo) * (int64_t)width;
-  // per destination - lo: its count, then its first entry, then its end
-  int* mine = kShared ? nullptr : scratch + b * ((int64_t)rows + 2 * S);  // b's counts, list, part
-  int* count = kShared ? dyn : mine + lo;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const unsigned lt = (1u << lane) - 1;
-  auto pack = [&](int s, int dl) { return kShared ? s | dl << 14 : s; };
-  auto source = [&](int e) { return kShared ? e & 0x3fff : e; };
-  auto dl_of = [&](int e) { return kShared ? e >> 14 : clamp_row(idx[e], rows) - lo; };
-  for (int r = tid; r < nrow; r += kThreads) count[r] = 0;
-
-  // (F) the span's sources in order: warp w takes the contiguous sources
-  // [w per, (w + 1) per), counts those in the span (and below it), and
-  // after the scan of the warps' counts writes them to the list (in the
-  // scratch, at the span's place: after the sources below it)
-  const int per = (S + kWarps - 1) / kWarps;
-  const int s0 = min(warp * per, S), s1 = min(s0 + per, S);
-  int* dcache = dyn + span + S;  // shared route: each source's destination, until (R)
-  int n_in = 0, n_below = 0;
-  for (int base = s0; base < s1; base += 4 * 32) {  // four loads in flight
-    int d[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int s = base + 32 * u + lane;
-      d[u] = s < s1 ? clamp_row(idx[s], rows) : rows;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int s = base + 32 * u + lane;
-      if (kShared && s < s1) dcache[s] = d[u];
-      n_in += __popc(__ballot_sync(kFull, d[u] >= lo && d[u] < lo + nrow));
-      n_below += __popc(__ballot_sync(kFull, d[u] < lo));
-    }
-  }
-  if (lane == 0) warp_first[warp] = n_in, warp_below[warp] = n_below;
-  __syncthreads();
-  if (warp == 0) {  // kWarps == 32
-    const int c = warp_first[lane];
-    const int incl = warp_inclusive_scan(c, lane);
-    warp_first[lane] = incl - c;
-    const int below = __reduce_add_sync(kFull, warp_below[lane]);
-    if (lane == 31) span_n = incl, span_below = below;
-  }
-  __syncthreads();
-  const int n = span_n;
-  int* list = kShared ? dyn + span : mine + rows + span_below;
-  int* part = kShared ? dyn + span + S : mine + rows + S + span_below;
-  int at = warp_first[warp];
-  for (int base = s0; base < s1; base += 32) {
-    const int s = base + lane;
-    const int d = s < s1 ? (kShared ? dcache[s] : clamp_row(idx[s], rows)) : rows;
-    const bool in = d >= lo && d < lo + nrow;
-    const unsigned ins = __ballot_sync(kFull, in);
-    if (in) {
-      list[at + __popc(ins & lt)] = pack(s, d - lo);
-      atomicAdd(&count[d - lo], 1);
-    }
-    at += __popc(ins);
-  }
-  __syncthreads();
-
-  // each destination's end in the sorted list: warp w scans the counts of
-  // destinations [w 2^shift, (w + 1) 2^shift) after the warps before it
-  const int rlo = min(warp << shift, nrow), rhi = min(rlo + (1 << shift), nrow);
-  int total = 0;
-  for (int r = rlo + lane; r < rhi; r += 32) total += count[r];
-  total = __reduce_add_sync(kFull, total);
-  if (lane == 0) bin_count[warp] = total;
-  __syncthreads();
-  if (warp == 0) {
-    const int c = bin_count[lane];
-    bin_start[lane] = warp_inclusive_scan(c, lane) - c;
-  }
-  __syncthreads();
-  int running = bin_start[warp];
-  for (int r0 = rlo; r0 < rhi; r0 += 32) {
-    const int r = r0 + lane;
-    const int c = r < rhi ? count[r] : 0;
-    const int incl = warp_inclusive_scan(c, lane);
-    if (r < rhi) count[r] = running + incl;
-    running += __shfl_sync(kFull, incl, 31);
-  }
-
-  // (R) a stable radix sort of the list by destination - lo, 5 bits a pass
-  // from the lowest: in each pass warp w takes a contiguous 32nd of the
-  // list in order, ranks its lanes by ballots of the digit's bits, and the
-  // block scans the (digit, warp) counts digit-major, warp-minor, so every
-  // pass keeps the order of equal digits (and any skew of the destinations
-  // spreads evenly over the warps)
-  const int dbits = nrow <= 1 ? 0 : 32 - __clz(nrow - 1);
-  const int lper = (n + kWarps - 1) / kWarps;
-  const int i0 = min(warp * lper, n), i1 = min(i0 + lper, n);
-  int* from = list;
-  int* to = part;
-  for (int sh = 0; sh < dbits; sh += kDigitBits) {
-    wcnt[lane][warp] = 0;
-    __syncwarp();
-    for (int base = i0; base < i1; base += 32) {  // the warp's count per digit
-      const int i = base + lane;
-      const bool live = i < i1;
-      const int digit = live ? (dl_of(from[i]) >> sh) & (kDigits - 1) : 0;
-      const unsigned peers = peers_of((unsigned)digit, __ballot_sync(kFull, live));
-      if (live && (peers & lt) == 0) wcnt[digit][warp] += __popc(peers);
-      __syncwarp();
-    }
-    __syncthreads();
-    {  // thread (digit = warp, warp' = lane): the warps' first entries in the digit
-      const int c = wcnt[warp][lane];
-      const int incl = warp_inclusive_scan(c, lane);
-      wcnt[warp][lane] = incl - c;
-      if (lane == 31) bin_count[warp] = incl;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const int c = bin_count[lane];
-      bin_start[lane] = warp_inclusive_scan(c, lane) - c;
-    }
-    __syncthreads();
-    for (int base = i0; base < i1; base += 32) {
-      const int i = base + lane;
-      const bool live = i < i1;
-      const int e = live ? from[i] : 0;
-      const int digit = live ? (dl_of(e) >> sh) & (kDigits - 1) : 0;
-      const unsigned peers = peers_of((unsigned)digit, __ballot_sync(kFull, live));
-      const int rank = __popc(peers & lt);
-      const int pos = live ? bin_start[digit] + wcnt[digit][warp] + rank : 0;
-      __syncwarp();
-      if (live && rank == 0) wcnt[digit][warp] += __popc(peers);
-      __syncwarp();
-      if (live) to[pos] = e;
-    }
-    __syncthreads();
-    int* t = from;
-    from = to;
-    to = t;
-  }
-  if (from != list) {  // an odd number of passes: the sorted list back in place
-    for (int i = tid; i < n; i += kThreads) list[i] = from[i];
-    __syncthreads();
-  }
+  int *count, *list;
+  const int n = span_sort::sort_span<kShared>(
+      [&](int s) { return clamp_row(idx[s], rows); }, S, rows, lo, nrow, shift, dyn,
+      kShared ? nullptr : scratch + b * ((int64_t)rows + 2 * S), count, list);
+  auto source = [](int e) { return span_sort::source<kShared>(e); };
 
   // (S) each row's sources in order: entries [end of the row before, end)
   // On the shared route the block stages windows of the list's values in

@@ -15,16 +15,50 @@
 // block is carried across the sequential grid. A Hopper thread adds to and
 // reads from any row, so neither kernel builds W:
 //
-// - dfeats: one thread per (b, s, m, 4 channels) reads w, idx and
-//   g[b, s, c:c+4] and adds w * g into dfeats[b, idx] with one 16-byte
-//   vector atomic (red.global.add.v4.f32, sm_90) where C % 4 == 0 and both
-//   pointers allow it, else one thread and one float32 atomic per channel.
-//   The output is zeroed on the same stream first. Bound on the H100:
-//   bytes (w, idx and g read, dfeats written; 2 flops per term). Sum order:
-//   the atomics add in whatever order the blocks run, so a row that
-//   receives several terms can differ in its last bits from run to run,
-//   as the scatter-add does (csrc/scatter_add_rows.cu); the contract is
-//   agreement to float32 rounding.
+// - dfeats: destination-major and deterministic, one kernel. Each output
+//   element is the float32 sum of its terms w * g (each product rounded
+//   once) in increasing flat (s, m) order, starting from +0: the order and
+//   rounding of the plain version on the CPU (index_add_ of the products),
+//   so the kernel is bit-equal to it and two runs give the same bits, as
+//   the TPU kernel's sequential grid was deterministic. No atomics on the
+//   values and no zeroing pass: each element is written once, a row with
+//   no term as zero. Bound on the H100: bytes (w, idx and g read once,
+//   dfeats written once; a multiply and an add per term and channel).
+//   Block (b, k, z) owns the destination span [k span, (k + 1) span) of
+//   batch element b and the channel slab z of nch chunks (16 bytes where
+//   C % 4 == 0 and the pointers allow it, else 4).
+//   - (F, R) It lists the S K terms that land in its span and sorts them
+//     stably by destination (span_sort.cuh, by its counting pass where the
+//     table fits; an out-of-range index lands nowhere), so each row's
+//     terms are a run in increasing (s, m) order, the run's last entry
+//     marked by its sign bit.
+//   - (S) The sums walk the sources in windows, in order: the block copies
+//     a window's g rows (its slab) and weights into shared memory with
+//     cp.async (over the sort's spent second list), the next window's copy
+//     in flight while the current one is summed. Each thread carries up to
+//     kPairs (row, chunk) sums in registers, each with its row's next
+//     entry and that entry's term, and adds the terms whose source lies in
+//     the window, two a step (their loads together, the adds in order); a
+//     pair whose row has none there costs one compare (a row gets about 2
+//     terms a window on random indices, hundreds where many queries share
+//     a known point). So g is read once, coalesced, whatever the indices:
+//     a sum that staged each row's terms in destination order would read
+//     every g row K times at random.
+//   Slabs fill the card at the deformable step's shapes (32 elements x 192
+//   channels or 16 x 384, 256-576 rows: one span, 4 or 8 slabs of 48
+//   channels, 128 blocks), each slab block sorting its element's terms
+//   again. On calls with up to 16384 terms an element (every 3-NN VJP) the
+//   sort lives in shared memory; larger calls keep it in int32 scratch
+//   that the wrapper allocates (weighted_gather_sum_dfeats_scratch
+//   entries), one block a span walking its slabs in turn. The windows
+//   take most of a block's time, the sort the rest; within the windows the
+//   g loads meet bank conflicts where two rows of 12 chunks share an 8-lane
+//   phase, and a row with thousands of terms (the step's real 3-NN
+//   indices) is a chain of dependent steps in one warp: at 64 registers a
+//   thread the compiler serialises the terms of an unrolled step, so
+//   neither four terms a step, reading the list a step ahead nor a counted
+//   loop shortened it. A third window buffer (smaller windows) and
+//   interleaving a thread's pairs were slower too.
 // - dweights: bound on the H100: bytes (idx, g and the table read once,
 //   dw written once). A warp per row s splits the channels over a group
 //   of L lanes (L = half the row's width in float4 or float slots, rounded
@@ -44,37 +78,270 @@
 //   every mode timed: the rows hit L2, and the copy itself cost more than
 //   it saved. Offsets are 64-bit.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "span_sort.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+using span_sort::kBins;
+using span_sort::kThreads;
+constexpr int kPairs = 7;                          // (row, chunk) sums a thread carries
+constexpr int kPairsBlock = kThreads * kPairs;     // and a block
+constexpr int kMaxWindow = 512;                    // sources a window
 
-template <int V>
-__global__ void dfeats_kernel(const float* __restrict__ w,
-                              const int64_t* __restrict__ idx,
-                              const float* __restrict__ g,
-                              float* __restrict__ dfeats, int64_t S, int64_t K,
-                              int64_t M, int64_t width, int64_t total) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += stride) {
-    const int64_t term = t / width;  // flat (b, s, m)
-    const int64_t c = t - term * width;
-    const int64_t j = idx[term];
-    if (j < 0 || j >= M) continue;
-    const int64_t row = term / K;  // flat (b, s)
-    const int64_t b = row / S;
-    const float wv = w[term];
-    if (V == 4) {
-      const float4 gv = reinterpret_cast<const float4*>(g)[row * width + c];
-      atomicAdd(reinterpret_cast<float4*>(dfeats) + (b * M + j) * width + c,
-                make_float4(wv * gv.x, wv * gv.y, wv * gv.z, wv * gv.w));
-    } else {
-      atomicAdd(dfeats + (b * M + j) * width + c, wv * g[row * width + c]);
+__device__ __forceinline__ const float* lanes(const float4& v) { return &v.x; }
+__device__ __forceinline__ const float* lanes(const float& v) { return &v; }
+__device__ __forceinline__ void store(float4* p, const float (&a)[4]) {
+  *p = make_float4(a[0], a[1], a[2], a[3]);
+}
+__device__ __forceinline__ void store(float* p, const float (&a)[1]) { *p = a[0]; }
+
+// kShared: the sort in dynamic shared memory (span_sort.cuh), else in the
+// element's scratch, the block then walking the slabs z, z + gridDim.z, ...
+// V = 4: 16-byte chunks (width = C / 4 of them), V = 1: floats (width = C).
+// magic: floor((2^32 - 1) / K) + 1 where every term index t has t K < 2^32
+// (then s = t / K is (t magic) >> 32), else 0. counting: the sort takes its
+// counting pass (room for it after the sort's lists).
+template <bool kShared, int V>
+__global__ void __launch_bounds__(kThreads, 1)
+    dfeats_kernel(const float* __restrict__ w, const int64_t* __restrict__ idx,
+                  const float* __restrict__ g, float* __restrict__ out, int* __restrict__ scratch,
+                  int S, int K, int M, int shift, int width, int nch, int window,
+                  unsigned long long magic, int counting) {
+  typedef typename std::conditional<V == 4, float4, float>::type T;
+  extern __shared__ int4 dyn4[];  // 16-byte aligned
+  int* dyn = reinterpret_cast<int*>(dyn4);
+  const int64_t b = blockIdx.x;
+  const int nt = S * K;  // terms of the element
+  const int span = kBins << shift;
+  const int lo = blockIdx.y * span, nrow = min(span, M - lo);
+  const int tid = threadIdx.x;
+  idx += b * nt;
+  w += b * nt;
+  int *count, *list;
+  span_sort::sort_span<kShared>(
+      [&](int t) {
+        const int64_t j = idx[t];
+        return j >= 0 && j < M ? (int)j : M;
+      },
+      nt, M, lo, nrow, shift, dyn, kShared ? nullptr : scratch + b * ((int64_t)M + 2 * nt), count,
+      list, kShared && counting);
+  // after the sort: the row ends (the global route's copy), then the two
+  // windows of g's slab rows and of the weights, over the sort's second
+  // list on the shared route (dead once the list is sorted)
+  int* ends = kShared ? count : dyn;
+  const int fixed = kShared ? span + nt : nrow;
+  T* sg = reinterpret_cast<T*>(dyn + ((fixed + 3) & ~3));
+  float* sw = reinterpret_cast<float*>(sg + 2 * window * nch);
+  if (!kShared) {
+    for (int r = tid; r < nrow; r += kThreads) ends[r] = count[r];
+    __syncthreads();
+  }
+  // each row's last entry gets its sign bit (sources fit in 30 bits)
+  for (int r = tid; r < nrow; r += kThreads)
+    if (ends[r] > (r == 0 ? 0 : ends[r - 1])) list[ends[r] - 1] |= INT_MIN;
+  __syncthreads();
+  const int nwin = (S + window - 1) / window;
+  auto div_k = [&](int t) { return magic ? (int)(((unsigned long long)t * magic) >> 32) : t / K; };
+
+  for (int c0 = blockIdx.z * nch; c0 < width; c0 += gridDim.z * nch) {
+    const int nc = min(nch, width - c0);
+    const int npairs = nrow * nc;
+    // pair p = (row p / nc, chunk p % nc) by one multiply (p nc < 2^32)
+    const unsigned ncm = nc > 1 ? 0xffffffffu / nc + 1 : 0;
+    auto row_of = [&](int p) { return nc > 1 ? (int)__umulhi((unsigned)p, ncm) : p; };
+    const T* gb = reinterpret_cast<const T*>(g) + b * S * (int64_t)width + c0;
+    // this thread's pairs tid + i kThreads: the sums, the list position of
+    // each row's next entry (its sign bit set where that entry is the row's
+    // last) and that entry's term (INT_MAX past the row's run)
+    float acc[kPairs][V];
+    int at[kPairs], next[kPairs];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[i][v] = 0.0f;
+      const int p = tid + i * kThreads, r = row_of(p);
+      at[i] = p < npairs && r > 0 ? ends[r - 1] : 0;
+      next[i] = INT_MAX;
+      if (p < npairs && at[i] < ends[r]) {
+        const int e = list[at[i]];
+        next[i] = span_sort::source<kShared>(e);
+        at[i] |= e & INT_MIN;
+      }
+    }
+    __syncthreads();  // the previous slab's last window is read
+    auto issue = [&](int wi) {  // window wi's copies, into buffer wi & 1
+      const int s0 = wi * window, ns = min(window, S - s0);
+      T* sgb = sg + (wi & 1) * window * nch;
+      for (int q = tid; q < ns * nc; q += kThreads) {
+        const int sr = q / nc;
+        __pipeline_memcpy_async(sgb + q, gb + (int64_t)(s0 + sr) * width + (q - sr * nc), sizeof(T));
+      }
+      float* swb = sw + (wi & 1) * window * K;
+      for (int q = tid; q < ns * K; q += kThreads)
+        __pipeline_memcpy_async(swb + q, w + (int64_t)s0 * K + q, sizeof(float));
+      __pipeline_commit();
+    };
+    if (nwin > 0) issue(0);
+    for (int wi = 0; wi < nwin; ++wi) {
+      if (wi + 1 < nwin) {
+        issue(wi + 1);
+        __pipeline_wait_prior(1);
+      } else {
+        __pipeline_wait_prior(0);
+      }
+      __syncthreads();  // the window is in place
+      const int s0 = wi * window, t0 = s0 * K, t1 = min(S, s0 + window) * K;
+      const T* sgb = sg + (wi & 1) * window * nch;
+      const float* swb = sw + (wi & 1) * window * K;
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        if (next[i] >= t1) continue;  // no term of this pair's row in the window
+        const int p = tid + i * kThreads, ch = p - row_of(p) * nc;
+        do {  // the row's next two terms where both lie in the window, added in order
+          const int t = next[i], pos = at[i] & INT_MAX;
+          const int e1 = list[pos + 1], e2 = list[pos + 2];  // within the list's room
+          const int u1 = span_sort::source<kShared>(e1);
+          const bool two = at[i] >= 0 && u1 < t1;  // the second term: in the run and the window
+          const float wv = swb[t - t0];
+          const T gv = sgb[(div_k(t) - s0) * nc + ch];
+          float w1 = 0.0f;
+          T g1{};
+          if (two) {
+            w1 = swb[u1 - t0];
+            g1 = sgb[(div_k(u1) - s0) * nc + ch];
+          }
+          // the entry after the last one taken: its term, INT_MAX past the run
+          const int e = two ? e2 : e1, last = two ? e1 : at[i];
+          next[i] = last < 0 ? INT_MAX : span_sort::source<kShared>(e);
+          at[i] = (pos + (two ? 2 : 1)) | (e & INT_MIN);
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            acc[i][v] = __fadd_rn(acc[i][v], __fmul_rn(wv, lanes(gv)[v]));
+            if (two) acc[i][v] = __fadd_rn(acc[i][v], __fmul_rn(w1, lanes(g1)[v]));
+          }
+        } while (next[i] < t1);
+      }
+      __syncthreads();  // the buffer is free for window wi + 2
+    }
+    T* dst = reinterpret_cast<T*>(out) + (b * M + lo) * (int64_t)width + c0;
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int p = tid + i * kThreads, r = row_of(p);
+      if (p < npairs) store(dst + (int64_t)r * width + (p - r * nc), acc[i]);
     }
   }
+}
+
+// A call's layout: spans of kBins << shift rows (nspan of them), slabs of
+// nch chunks (nslab blocks of them), sources a window, the route and the
+// dynamic shared memory.
+struct DfeatsPlan {
+  int shift, nspan, nch, nslab, window;
+  bool shared, counting;
+  size_t smem;
+};
+
+// the dynamic shared memory a block may take (read once per device)
+int dfeats_smem_budget() {
+  static int bytes[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& b = bytes[dev & 63];
+  if (b == 0) {
+    int optin = 0;
+    cudaFuncAttributes attr;
+    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+        cudaFuncGetAttributes(&attr, dfeats_kernel<true, 4>) != cudaSuccess)
+      return 0;
+    b = optin - (int)attr.sharedSizeBytes;
+  }
+  return b;
+}
+
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& c = count[dev & 63];
+  if (c == 0 && cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) c = 1;
+  return c;
+}
+
+// false where no layout fits (a window of one source exceeds shared memory)
+bool dfeats_plan(int64_t B, int64_t S, int64_t K, int64_t M, int64_t width, int V, DfeatsPlan& p) {
+  const int64_t nt = S * K, budget = dfeats_smem_budget() / 4;
+  // rows a block: the least power of two that holds M, at most kPairsBlock
+  p.shift = 0;
+  while (((int64_t)kBins << p.shift) < M && ((int64_t)kBins << (p.shift + 1)) <= kPairsBlock) ++p.shift;
+  const int64_t span = (int64_t)kBins << p.shift, nrow = span < M ? span : M;
+  p.nspan = (int)((M + span - 1) / span);
+  const int64_t most = kPairsBlock / nrow;  // chunks a block at most
+  const int64_t least_slabs = (width + most - 1) / most;
+  for (int route = 0; route < 2; ++route) {
+    p.shared = route == 0;
+    if (p.shared && (span > span_sort::kSharedSpan || nt > span_sort::kSharedSources)) continue;
+    int64_t slabs = least_slabs;
+    if (p.shared) {  // fill the card: one block an SM
+      const int64_t fill = sm_count() / (B * p.nspan);
+      if (fill > slabs) slabs = fill < width ? fill : width;
+    }
+    const int64_t nch = (width + slabs - 1) / slabs;
+    p.nch = (int)nch;
+    p.nslab = p.shared ? (int)((width + nch - 1) / nch) : 1;
+    // the sort (span + 2 nt words, and the counting pass's table where it
+    // fits), or the row ends and the staging over the sort's second list
+    const int64_t fixed = ((p.shared ? span + nt : nrow) + 3) & ~3;
+    const int64_t per_source = 2 * (nch * V + K);
+    if (p.shared && span + 2 * nt > budget) continue;
+    const int64_t sort = span + 2 * nt + span_sort::kWarps * nrow;
+    p.counting = p.shared && sort <= budget;
+    int64_t window = (budget - fixed) / per_source;
+    if (window > kMaxWindow) window = kMaxWindow;
+    if (window > S) window = S;
+    if (window < 1 && S > 0) continue;
+    p.window = (int)(window < 1 ? 1 : window);
+    const int64_t stage = p.window * per_source;
+    int64_t words = fixed + (p.shared && nt > stage ? nt : stage);
+    if (p.counting && sort > words) words = sort;
+    p.smem = (size_t)words * 4;
+    return true;
+  }
+  return false;
+}
+
+bool dfeats_vec4(int64_t C, const void* g, const void* out) {
+  return C % 4 == 0 && ((reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(out)) % 16) == 0;
+}
+
+template <bool kShared, int V>
+cudaError_t launch_dfeats(const float* w, const int64_t* idx, const float* g, float* out, int* scratch,
+                          int64_t B, int64_t S, int64_t K, int64_t M, int64_t width,
+                          const DfeatsPlan& p, cudaStream_t st) {
+  static bool attr_set[64] = {false};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!attr_set[dev & 63]) {
+    const cudaError_t e = cudaFuncSetAttribute(dfeats_kernel<kShared, V>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               dfeats_smem_budget());
+    if (e != cudaSuccess) return e;
+    attr_set[dev & 63] = true;
+  }
+  const int64_t nt = S * K;
+  const unsigned long long magic =
+      K >= 1 && nt * K < ((int64_t)1 << 32) ? 0xffffffffull / (unsigned long long)K + 1 : 0;
+  const dim3 grid((unsigned)B, (unsigned)p.nspan, (unsigned)p.nslab);
+  dfeats_kernel<kShared, V><<<grid, kThreads, p.smem, st>>>(
+      w, idx, g, out, scratch, (int)S, (int)K, (int)M, p.shift, (int)width, p.nch, p.window, magic,
+      p.counting ? 1 : 0);
+  return cudaGetLastError();
 }
 
 constexpr int DW_THREADS = 512;  // 16 warps, a row each at a time
@@ -194,32 +461,38 @@ bool aligned16(const void* a, const void* b) {
 
 }  // namespace
 
-// w (B, S, K), idx (B, S, K), g (B, S, C) -> dfeats (B, M, C), zeroed here.
-extern "C" int weighted_gather_sum_dfeats_f32(const float* w,
-                                              const int64_t* idx,
-                                              const float* g, float* dfeats,
-                                              int64_t B, int64_t S, int64_t K,
-                                              int64_t M, int64_t C,
-                                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t out_elems = B * M * C;
-  if (out_elems == 0) return 0;
-  cudaError_t rc = cudaMemsetAsync(dfeats, 0, out_elems * sizeof(float), s);
-  if (rc != cudaSuccess) return (int)rc;
-  const bool vec4 = (C % 4 == 0) && aligned16(g, dfeats);
+// The int32 scratch entries a dfeats call needs: none on the shared route,
+// B (M + 2 S K) otherwise (for either chunk width, since the route may
+// depend on the pointers' alignment).
+extern "C" int64_t weighted_gather_sum_dfeats_scratch(int64_t B, int64_t S, int64_t K, int64_t M,
+                                                      int64_t C) {
+  DfeatsPlan p;
+  const bool global = !dfeats_plan(B, S, K, M, C, 1, p) || !p.shared ||
+                      (C % 4 == 0 && (!dfeats_plan(B, S, K, M, C / 4, 4, p) || !p.shared));
+  return global ? B * (M + 2 * S * K) : 0;
+}
+
+// w (B, S, K), idx (B, S, K), g (B, S, C) -> dfeats (B, M, C), every element
+// written; scratch: weighted_gather_sum_dfeats_scratch(B, S, K, M, C) int32
+// entries.
+extern "C" int weighted_gather_sum_dfeats_f32(const float* w, const int64_t* idx, const float* g,
+                                              float* dfeats, int* scratch, int64_t B, int64_t S,
+                                              int64_t K, int64_t M, int64_t C, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B * M * C == 0) return 0;
+  if (B >= ((int64_t)1 << 31) || S * K >= ((int64_t)1 << 30) || M >= ((int64_t)1 << 30) ||
+      C >= ((int64_t)1 << 30))
+    return (int)cudaErrorInvalidValue;
+  const bool vec4 = dfeats_vec4(C, g, dfeats);
   const int64_t width = vec4 ? C / 4 : C;
-  const int64_t total = B * S * K * width;
-  if (total == 0) return 0;
-  int64_t blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride covers the rest
-  if (vec4) {
-    dfeats_kernel<4><<<(unsigned)blocks, THREADS, 0, s>>>(w, idx, g, dfeats, S,
-                                                         K, M, width, total);
-  } else {
-    dfeats_kernel<1><<<(unsigned)blocks, THREADS, 0, s>>>(w, idx, g, dfeats, S,
-                                                         K, M, width, total);
-  }
-  return (int)cudaGetLastError();
+  DfeatsPlan p;
+  if (!dfeats_plan(B, S, K, M, width, vec4 ? 4 : 1, p) || p.nspan > 65535 || p.nslab > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (p.shared)
+    return (int)(vec4 ? launch_dfeats<true, 4>(w, idx, g, dfeats, scratch, B, S, K, M, width, p, st)
+                      : launch_dfeats<true, 1>(w, idx, g, dfeats, scratch, B, S, K, M, width, p, st));
+  return (int)(vec4 ? launch_dfeats<false, 4>(w, idx, g, dfeats, scratch, B, S, K, M, width, p, st)
+                    : launch_dfeats<false, 1>(w, idx, g, dfeats, scratch, B, S, K, M, width, p, st));
 }
 
 // idx (B, S, K), g (B, S, C), feats (B, M, C) -> dw (B, S, K).

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "scatter_add_rows_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "nn_one_direction_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "weighted_gather_sum_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
-    "weighted_gather_sum_dfeats_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "weighted_gather_sum_dfeats_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "weighted_gather_sum_dweights_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "auction_top2_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "three_nn_interpolate_f32": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_float, _P],
@@ -163,6 +163,8 @@ def library() -> ctypes.CDLL:
                 lib.knn_chunks.restype = ctypes.c_int64
                 lib.scatter_add_rows_scratch.argtypes = [_I64, _I64, _I64]
                 lib.scatter_add_rows_scratch.restype = ctypes.c_int64
+                lib.weighted_gather_sum_dfeats_scratch.argtypes = [_I64, _I64, _I64, _I64, _I64]
+                lib.weighted_gather_sum_dfeats_scratch.restype = ctypes.c_int64
                 _lib = lib
                 _entries.update((name, getattr(lib, name)) for name in _SIGNATURES)
     return _lib

@@ -32,6 +32,8 @@ caller produces one: the indices come from a top-k.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -63,7 +65,11 @@ def weighted_gather_sum_plain(w: torch.Tensor, idx: torch.Tensor,
 def weighted_gather_sum_dfeats_plain(w: torch.Tensor, idx: torch.Tensor, g: torch.Tensor,
                                      n_rows: int) -> torch.Tensor:
     """Plain version of :func:`weighted_gather_sum_dfeats`: the (B, S, K, C)
-    terms ``w · g`` added into their rows with ``index_add_``."""
+    terms ``w · g`` (each product rounded once) added into their rows with
+    ``index_add_``, an out-of-range term as zero. On the CPU each element is
+    the sum of its terms in increasing flat (s, m) order, starting from zero,
+    which the kernel repeats (``tests/test_torch_branch_train.py`` holds the
+    plain version to that order)."""
     B, S, K = w.shape
     C = g.shape[-1]
     terms = (w[..., None] * g[:, :, None, :]).masked_fill(_invalid(idx, n_rows)[..., None], 0.0)
@@ -121,13 +127,24 @@ def weighted_gather_sum_forward(w: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _dfeats_scratch(B: int, S: int, K: int, n_rows: int, C: int) -> int:
+    """The int32 scratch entries the ``dfeats`` kernel takes: none where its
+    sort fits in shared memory (every 3-NN VJP), else room for its counts
+    and term lists."""
+    return _build.library().weighted_gather_sum_dfeats_scratch(B, S, K, n_rows, C)
+
+
 def weighted_gather_sum_dfeats(w: torch.Tensor, idx: torch.Tensor, g: torch.Tensor,
                                n_rows: int) -> torch.Tensor:
     """``dfeats[b, j, :] = Σ_{s, m: idx[b, s, m] = j} w[b, s, m] · g[b, s, :]``:
     (B, n_rows, C), the gradient of the forward's table for the cotangent
-    ``g`` (B, S, C). On the card the kernel adds with float32 atomics, so a
-    row with several terms agrees with the plain version to float32
-    rounding and can differ in its last bits between two runs."""
+    ``g`` (B, S, C). On the card one kernel sorts each batch element's terms
+    by destination, stably (in shared memory where an element has at most
+    16384 terms, else in int32 scratch allocated here), then adds each
+    row's terms in (s, m) order: every element is the plain version's
+    float32 sum in the same order, so the kernel is bit-equal to the plain
+    version on the CPU and two runs give the same bits."""
     _check("weighted_gather_sum_dfeats", w, idx, n_rows, g)
     if _on_cpu("weighted_gather_sum_dfeats", g):
         return weighted_gather_sum_dfeats_plain(w, idx, g, n_rows)
@@ -135,9 +152,12 @@ def weighted_gather_sum_dfeats(w: torch.Tensor, idx: torch.Tensor, g: torch.Tens
     B, S, K = w.shape
     C = g.shape[2]
     out = torch.empty(B, n_rows, C, dtype=g.dtype, device=g.device)
+    n_scratch = _dfeats_scratch(B, S, K, n_rows, C)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=g.device) if n_scratch else None
     _build.launch(
         "weighted_gather_sum_dfeats", "weighted_gather_sum_dfeats_f32", g.device,
-        w.data_ptr(), idx.data_ptr(), g.data_ptr(), out.data_ptr(), B, S, K, n_rows, C,
+        w.data_ptr(), idx.data_ptr(), g.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), B, S, K, n_rows, C,
     )
     return out
 

@@ -150,6 +150,29 @@ def test_weighted_gather_sum_vjp_out_of_range_indices():
         ops.weighted_gather_sum_dweights(ti, tg[:, :5], tf)
 
 
+@pytest.mark.parametrize("shape", [(2, 40, 3, 9, 8), (1, 300, 3, 16, 5), (3, 25, 7, 30, 4)])
+def test_dfeats_plain_sums_each_row_in_term_order(shape):
+    """The plain ``dfeats`` equals, bit for bit, a float32 loop that adds
+    each term's product ``w · g`` (rounded once) into its row in increasing
+    flat (s, m) order from zero, skipping out-of-range indices: the order
+    the kernel repeats on the card. Few rows, so that each gets many terms;
+    some indices repeat within a row's K, some lie out of range."""
+    B_, S, K, M, C = shape
+    rng = np.random.RandomState(sum(shape))
+    w = rng.randn(B_, S, K).astype(np.float32)
+    idx = rng.randint(-2, M + 2, (B_, S, K))
+    idx[:, ::5, 1] = idx[:, ::5, 0]
+    g = rng.randn(B_, S, C).astype(np.float32)
+    want = np.zeros((B_, M, C), np.float32)
+    for b, s, m in np.ndindex(B_, S, K):
+        if 0 <= idx[b, s, m] < M:
+            want[b, idx[b, s, m]] = want[b, idx[b, s, m]] + w[b, s, m] * g[b, s]
+    assert want.dtype == np.float32
+    tw, ti, tg = (torch.from_numpy(a) for a in (w, idx, g))
+    np.testing.assert_array_equal(ops.weighted_gather_sum_dfeats_plain(tw, ti, tg, M).numpy(), want)
+    np.testing.assert_array_equal(ops.weighted_gather_sum_dfeats(tw, ti, tg, M).numpy(), want)
+
+
 # ------------------------------------------------------------------ GDANet
 
 

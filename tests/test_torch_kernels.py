@@ -7,15 +7,16 @@ machine with a card it runs on its own:
 
     python -m pytest tests/test_torch_kernels.py -q --noconftest
 
-Tolerance: none, but for the gather-sum's ``dfeats``, the weighted
-gather-sum with its ``dweights``, and the matmul-form argmin. Most kernels
-repeat their plain version's arithmetic (diff-form distances without FMA
-contraction, first index on ties), so indices are equal and values
-bit-equal. The scatter-add sums each output element in increasing source
-order, as the plain version does on the CPU, so it is held to the CPU
-plain version's bits, and two launches to each other's. ``dfeats`` sums with
-float32 atomics in no fixed order: 1e-5 of each element's sum of absolute
-contributions. The weighted gather-sum and its ``dweights`` add with fused
+Tolerance: none, but for the weighted gather-sum with its ``dweights``,
+and the matmul-form argmin. Most kernels repeat their plain version's
+arithmetic (diff-form distances without FMA contraction, first index on
+ties), so indices are equal and values bit-equal. The scatter-add and the
+gather-sum's ``dfeats`` sum each output element in increasing source order
+(``dfeats``: flat (s, m) order, each product rounded once), as their plain
+versions do on the CPU, so they are held to the CPU plain version's bits,
+and two launches to each other's (``dfeats`` was held to 1e-5 of each
+element's absolute sum while it added with float32 atomics in no fixed
+order). The weighted gather-sum and its ``dweights`` add with fused
 multiply-adds in a fixed order, the plain versions with PyTorch's
 reductions: 1e-5 of each element's sum of absolute terms. The matmul-form
 argmin sums its products on the tensor cores in their own order: held to
@@ -332,6 +333,43 @@ def test_nn_one_direction_kernel_equals_plain(dev, masked):
         assert torch.equal(got, ops.nn_bidir_argmin(x, y)[0])
 
 
+@pytest.mark.parametrize("B,N,M", [(1, 16384, 16384), (1, 1, 16384), (1, 16384, 1), (2, 3000, 16379),
+                                   (3, 700, 257), (800, 64, 64)])
+@pytest.mark.parametrize("probe", ["random", "duplicates", "none_valid"])
+def test_nn_one_direction_kernel_chunks(dev, B, N, M, probe):
+    """The candidate axis split into chunks merged by a 64-bit atomicMin
+    (one chunk, written directly, where the rows alone fill the card: 800 x
+    64): a test cloud at 1 x 16384², one query, one candidate, M off the
+    chunk size. ``duplicates``: y's second half repeats its first (ties
+    across chunks), queries sit on y points, and unmasked every pick is a
+    first copy; masked, some first copies are hidden. ``none_valid``: the
+    odd batch elements' masks (at batch 1, the only one's) are all zero, so
+    their rows take index 0."""
+    g = torch.Generator().manual_seed(N + M)
+    x, y = _sphere(g, B, N, dev), _sphere(g, B, M, dev)
+    wy = (torch.rand(B, M, generator=g) > 0.3).float().to(dev)
+    if probe == "duplicates" and M > 1:
+        h = (M + 1) // 2
+        y = torch.cat([y[:, :h], y[:, :h]], dim=1)[:, :M].contiguous()
+        x[:, ::2] = y[:, torch.randint(0, M, (len(range(0, N, 2)),), generator=g).to(dev)]
+        wy = torch.cat([wy[:, :h], torch.ones_like(wy[:, :h])], dim=1)[:, :M].contiguous()
+        got = ops.nn_one_direction(x, y)
+        assert torch.equal(got, ops.nn_one_direction_plain(x, y))
+        assert bool((got < h).all())
+    empty = slice(1, None, 2) if B > 1 else slice(None)  # batch elements with no valid candidate
+    if probe == "none_valid":
+        wy[empty] = 0.0
+    got = _launched("nn_one_direction", lambda: ops.nn_one_direction(x, y, wy))
+    assert torch.equal(got, ops.nn_one_direction_plain(x, y, wy))
+    assert torch.equal(got, ops.nn_one_direction(x, y, wy))
+    if probe == "none_valid":
+        assert bool(got[empty].eq(0).all())
+    valid = wy.sum(-1) > 0
+    assert bool(wy.gather(1, got)[valid].eq(1).all())
+    if probe == "random":  # unmasked, the bidirectional kernel's first direction
+        assert torch.equal(ops.nn_one_direction(x, y), ops.nn_bidir_argmin(x, y)[0])
+
+
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
 def test_nn_distance_gradients_agree_with_plain_path(dev, masked):
     """Values and both input gradients of ``nn_distance`` on the card (the
@@ -414,18 +452,19 @@ def test_weighted_gather_sum_kernel_refuses_what_it_cannot_take(dev):
     # wide tables, at a float4 width and at C = 3
     (2, 130, 63, 769, 64), (1, 70, 5, 16385, 3)])
 def test_weighted_gather_sum_backward_kernels_agree_with_plain(dev, B, S, K, M, C):
-    """dfeats (float32 atomics: 1e-5 of each element's absolute sum) and
-    dweights (a fixed shuffle order: 1e-5 of each element's absolute sum,
-    and the same bits in two runs) at the superset's GDANet shape, odd
-    widths, K = 1, S off the kernel's 64-row tile and wide tables; a third
-    of the indices out of range."""
+    """dfeats (the CPU plain version's bits, and the same bits in two runs)
+    and dweights (a fixed shuffle order: 1e-5 of each element's absolute
+    sum, and the same bits in two runs) at the superset's GDANet shape (past
+    16384 terms an element: the sort in scratch), odd widths, K = 1, S off
+    the kernel's 64-row tile and wide tables; a third of the indices out of
+    range."""
     g = torch.Generator().manual_seed(S + K + C + 1)
     w = _cloud(g, B, S, K, device=dev)
     idx = torch.randint(-M // 2, M + M // 2, (B, S, K), generator=g).to(dev)
     feats, cot = _cloud(g, B, M, C, device=dev), _cloud(g, B, S, C, device=dev)
     df = _launched("weighted_gather_sum_dfeats", lambda: ops.weighted_gather_sum_dfeats(w, idx, cot, M))
-    room = 1e-5 * ops.weighted_gather_sum_dfeats_plain(w.abs(), idx, cot.abs(), M)
-    assert bool(((df - ops.weighted_gather_sum_dfeats_plain(w, idx, cot, M)).abs() <= room).all())
+    assert torch.equal(df.cpu(), ops.weighted_gather_sum_dfeats_plain(w.cpu(), idx.cpu(), cot.cpu(), M))
+    assert torch.equal(df, ops.weighted_gather_sum_dfeats(w, idx, cot, M))
     dw = _launched("weighted_gather_sum_dweights", lambda: ops.weighted_gather_sum_dweights(idx, cot, feats))
     room = 1e-5 * ops.weighted_gather_sum_dweights_plain(idx, cot.abs(), feats.abs())
     assert bool(((dw - ops.weighted_gather_sum_dweights_plain(idx, cot, feats)).abs() <= room).all())
@@ -510,9 +549,8 @@ def test_three_nn_interpolate_kernel_edges_and_backward(dev):
     torch.cuda.synchronize()
     assert _build.launches()["weighted_gather_sum_dfeats"] == before + 1
     _, idx, w = ops.three_nn_interpolate_plain(known[:, ::2], known, feats)
-    want = ops.weighted_gather_sum_dfeats_plain(w, idx, cot, 576)
-    room = 1e-5 * ops.weighted_gather_sum_dfeats_plain(w, idx, cot.abs(), 576)
-    assert bool(((f.grad - want).abs() <= room).all())
+    want = ops.weighted_gather_sum_dfeats_plain(w.cpu(), idx.cpu(), cot.cpu(), 576)
+    assert torch.equal(f.grad.cpu(), want)
     with pytest.raises(ValueError, match="at least 3"):
         ops.three_nn_interpolate(known, known[:, :2], feats[:, :2])
     with pytest.raises(TypeError):

@@ -227,12 +227,22 @@ def test_chamfer_forms_match_jax(form, masked):
 
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_nn_one_direction_matches_jax_diff_form(dtype, masked):
+@pytest.mark.parametrize("cloud", ["sphere", "batch1", "duplicates"])
+def test_nn_one_direction_matches_jax_diff_form(dtype, masked, cloud):
+    """A dense sphere at batch 2 (N < M); at batch 1 with N > M (the test
+    protocol's masked calls run at batch 1); and exact duplicates: y's
+    second half repeats its first, and some x sit on y points, so equal
+    distances (0 among them) meet across the reference's tiles and the
+    first index must win (the masked case hides some first copies, whose
+    second copies must win instead)."""
     rng = np.random.RandomState(12)
-    B, N, M = 2, 300, 700
+    B, N, M = (1, 700, 300) if cloud == "batch1" else (2, 300, 700)
     v = rng.randn(B, N + M, 3)
     v = (0.5 * v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(dtype)  # dense sphere
     x, y = v[:, :N], v[:, N:]
+    if cloud == "duplicates":
+        y[:, M // 2:] = y[:, :M - M // 2]
+        x[:, ::3] = y[:, 5:5 + len(range(0, N, 3))]
     wy = (rng.rand(B, M) > 0.5).astype(dtype) if masked else None
     with x64(dtype == np.float64):
         _, want = jchamfer._nn_one_direction(
@@ -242,6 +252,8 @@ def test_nn_one_direction_matches_jax_diff_form(dtype, masked):
     got = ops.nn_one_direction(_t(x), _t(y), None if wy is None else _t(wy))
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if cloud == "duplicates" and not masked:  # every pick a first copy
+        assert bool((got < M // 2).all())
     if not masked:  # the same selection as the bidirectional op's first direction
         np.testing.assert_array_equal(got.numpy(), ops.nn_bidir_argmin(_t(x), _t(y))[0].numpy())
 
