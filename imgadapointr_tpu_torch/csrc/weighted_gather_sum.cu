@@ -13,25 +13,32 @@
 // row, so here the sum is a direct gather: no dense matrix and no size
 // limit.
 //
-// Bound on the H100: bytes. At GDANet's shapes (B 8, S = M = 512, K 63,
-// C 64) the kernel reads w, idx and the table and writes out (about 5 MB)
-// and does 2*B*S*K*C = 33 MFLOP, far under the fp32 rate. Design: one block
-// per tile of rows (b, s); the tile's weights and indices are staged in
-// shared memory, a chunk of KCHUNK at a time, with the range check done
-// there once; the threads of a row span its C channels, 16 bytes each where
-// C % 4 == 0 and both pointers allow it, so a row of the table is one
-// coalesced read; the table (128 KB per batch element at GDANet's shapes)
-// is read through L2. Each thread sums in ascending m with fused
-// multiply-adds. Offsets are 64-bit.
+// Bound on the H100: bytes, but at GDANet's shapes (B 8 or 16, S = M =
+// 512, K 63, C 64) a call moves about 5 MB (1.6 us at the byte rate), while
+// its table reads come to 66 MB at batch 8 (each output row reads 63 rows of
+// 256 bytes): what a call costs is where those reads are served from and
+// how long each chain of K multiply-adds waits for them. Design: no shared
+// memory and no barrier. A block takes rows of one batch element only, 16
+// warps, about one block an SM, so an SM's reads go to one 128 KB table and
+// mostly hit L1 (blocks of rows in plain order put several batch elements'
+// tables on an SM and read them from L2, and were slower on the H100). A group
+// of L lanes (the row's 16-byte chunks rounded up to a power of two, 8 to
+// 32) takes a row; the lanes read L of its indices and weights in one
+// coalesced read and hand them round by __shfl_sync; kTerms table rows are
+// read before their multiply-adds, so kTerms loads are in flight a lane. An
+// out-of-range index reads row 0 and its term is skipped by a select, never
+// multiplied by 0, so an inf or NaN row cannot leak. Each lane sums its
+// channels in ascending m with fused multiply-adds from +0: the same order
+// in every run. Offsets are 64-bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int KCHUNK = 32;    // (weight, index) pairs staged per row at a time
-constexpr int MAX_ROWS = 64;  // rows of a tile (blockDim.y)
-constexpr int THREADS = 256;
+constexpr int kWarps = 16;  // a block
+constexpr int kTerms = 8;   // table rows a lane reads before their adds
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void zero(float& a) { a = 0.0f; }
 __device__ __forceinline__ void zero(float4& a) { a = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
@@ -46,58 +53,82 @@ __device__ __forceinline__ void fma_into(float w, const float4& f, float4& acc) 
   acc.w = fmaf(w, f.w, acc.w);
 }
 
-// V is float (one channel per thread) or float4 (four); `width` is C / 4
-// for float4, else C. blockDim = (threads across the width, rows of the tile).
+// V is float (width = C) or float4 (width = C / 4); L lanes a row, a power
+// of two from 8 to 32. Block (x, b) takes rows [x per_block, (x + 1)
+// per_block) of batch element b.
 template <typename V>
-__global__ void weighted_gather_sum_kernel(const float* __restrict__ w,
-                                           const int64_t* __restrict__ idx,
-                                           const V* __restrict__ feats,
-                                           V* __restrict__ out, int64_t S,
-                                           int64_t K, int64_t M, int64_t width,
-                                           int64_t rows) {
-  __shared__ float sw[MAX_ROWS][KCHUNK];
-  __shared__ int si[MAX_ROWS][KCHUNK];  // -1: out of range or past K
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int nthreads = blockDim.x * blockDim.y;
-  const int tid = ty * blockDim.x + tx;
-  const int64_t row0 = (int64_t)blockIdx.x * blockDim.y;
-  const int64_t row = row0 + ty;  // flat (b, s)
-  const bool live = row < rows;
-  const V* table = feats + (live ? row / S : 0) * M * width;
-
-  // Loops with a barrier inside run the same trip count in every thread.
-  for (int64_t c0 = 0; c0 < width; c0 += blockDim.x) {
-    const int64_t c = c0 + tx;
-    V acc;
-    zero(acc);
-    for (int64_t k0 = 0; k0 < K; k0 += KCHUNK) {
-      __syncthreads();  // the previous chunk is consumed
-      for (int e = tid; e < (int)blockDim.y * KCHUNK; e += nthreads) {
-        const int r = e / KCHUNK, j = e - r * KCHUNK;
-        const int64_t rr = row0 + r, m = k0 + j;
+__global__ void __launch_bounds__(32 * kWarps)
+    weighted_gather_sum_kernel(const float* __restrict__ w, const int64_t* __restrict__ idx,
+                               const V* __restrict__ feats, V* __restrict__ out, int64_t S, int K,
+                               int64_t M, int64_t width, int64_t per_block, int L) {
+  const int lane = threadIdx.x & 31, sub = lane & (L - 1), rows_warp = 32 / L;
+  const int64_t b = blockIdx.y;
+  const int64_t lo = b * S + blockIdx.x * per_block;
+  const int64_t hi = min(b * S + S, lo + per_block);
+  const V* table = feats + b * M * width;
+  // the loops' trip counts are the same in every lane: the shuffles need the whole warp
+  for (int64_t r0 = lo + (int64_t)(threadIdx.x >> 5) * rows_warp; r0 < hi; r0 += (int64_t)kWarps * rows_warp) {
+    const int64_t row = r0 + lane / L;
+    const bool live = row < hi;
+    const int64_t rc = live ? row : hi - 1;  // a dead group still shuffles with its warp
+    const int64_t* ir = idx + rc * K;
+    const float* wr = w + rc * K;
+    for (int64_t c0 = 0; c0 < width; c0 += L) {
+      const int64_t c = c0 + sub, cc = c < width ? c : width - 1;
+      V acc;
+      zero(acc);
+      for (int m0 = 0; m0 < K; m0 += L) {
+        // this lane's term m0 + sub: index -1 past K or outside [0, M)
+        int j = -1;
         float wv = 0.0f;
-        int iv = -1;
-        if (rr < rows && m < K) {
-          const int64_t i = idx[rr * K + m];
-          if (i >= 0 && i < M) {
-            wv = w[rr * K + m];
-            iv = (int)i;
+        if (m0 + sub < K) {
+          const int64_t t = ir[m0 + sub];
+          wv = wr[m0 + sub];
+          if (t >= 0 && t < M) j = (int)t;
+        }
+        const int n = min(L, K - m0);
+        for (int u0 = 0; u0 < n; u0 += kTerms) {
+          int jt[kTerms];
+          float wt[kTerms];
+          V f[kTerms];
+#pragma unroll
+          for (int t = 0; t < kTerms; ++t) {
+            jt[t] = __shfl_sync(kFull, j, (u0 + t) & (L - 1), L);
+            wt[t] = __shfl_sync(kFull, wv, (u0 + t) & (L - 1), L);
+            f[t] = __ldg(table + (int64_t)(jt[t] < 0 ? 0 : jt[t]) * width + cc);
           }
-        }
-        sw[r][j] = wv;
-        si[r][j] = iv;
-      }
-      __syncthreads();
-      if (live && c < width) {
-        const int n = (int)(K - k0 < KCHUNK ? K - k0 : KCHUNK);
-        for (int j = 0; j < n; ++j) {
-          const int i = si[ty][j];
-          if (i >= 0) fma_into(sw[ty][j], table[(int64_t)i * width + c], acc);
+#pragma unroll
+          for (int t = 0; t < kTerms; ++t)
+            if (u0 + t < n && jt[t] >= 0) fma_into(wt[t], f[t], acc);
         }
       }
+      if (live && c < width) out[row * width + c] = acc;
     }
-    if (live && c < width) out[row * width + c] = acc;
   }
+}
+
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& c = count[dev & 63];
+  if (c == 0 && cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) c = 1;
+  return c;
+}
+
+template <typename V>
+void launch(const float* w, const int64_t* idx, const float* feats, float* out, int64_t B, int64_t S,
+            int64_t K, int64_t M, int64_t width, cudaStream_t s) {
+  int L = 8;
+  while (L < width && L < 32) L <<= 1;
+  // about one block an SM, each of one batch element
+  int64_t nbx = sm_count() / B;
+  if (nbx < 1) nbx = 1;
+  const int64_t per_block = (S + nbx - 1) / nbx;
+  nbx = (S + per_block - 1) / per_block;
+  weighted_gather_sum_kernel<V><<<dim3((unsigned)nbx, (unsigned)B), 32 * kWarps, 0, s>>>(
+      w, idx, reinterpret_cast<const V*>(feats), reinterpret_cast<V*>(out), S, (int)K, M, width,
+      per_block, L);
 }
 
 }  // namespace
@@ -108,26 +139,14 @@ extern "C" int weighted_gather_sum_f32(const float* w, const int64_t* idx,
                                        int64_t M, int64_t C, void* stream) {
   const int64_t rows = B * S;
   if (rows == 0 || C == 0) return 0;
+  if (K >= ((int64_t)1 << 30) || B > 65535) return (int)cudaErrorInvalidValue;
   const bool vec4 =
       (C % 4 == 0) &&
-      ((reinterpret_cast<uintptr_t>(feats) | reinterpret_cast<uintptr_t>(out)) %
-           16 ==
-       0);
-  const int64_t width = vec4 ? C / 4 : C;
-  int tx = 1;
-  while (tx < width && tx < THREADS) tx <<= 1;
-  int ty = THREADS / tx;
-  if (ty > MAX_ROWS) ty = MAX_ROWS;
-  const dim3 block(tx, ty);
-  const int64_t blocks = (rows + ty - 1) / ty;
+      ((reinterpret_cast<uintptr_t>(feats) | reinterpret_cast<uintptr_t>(out)) % 16 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    weighted_gather_sum_kernel<float4><<<(unsigned)blocks, block, 0, s>>>(
-        w, idx, reinterpret_cast<const float4*>(feats),
-        reinterpret_cast<float4*>(out), S, K, M, width, rows);
-  } else {
-    weighted_gather_sum_kernel<float><<<(unsigned)blocks, block, 0, s>>>(
-        w, idx, feats, out, S, K, M, width, rows);
-  }
+  if (vec4)
+    launch<float4>(w, idx, feats, out, B, S, K, M, C / 4, s);
+  else
+    launch<float>(w, idx, feats, out, B, S, K, M, C, s);
   return (int)cudaGetLastError();
 }

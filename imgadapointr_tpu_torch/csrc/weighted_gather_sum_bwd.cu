@@ -44,6 +44,13 @@
 //     a known point). So g is read once, coalesced, whatever the indices:
 //     a sum that staged each row's terms in destination order would read
 //     every g row K times at random.
+//   Grouped (groups > 1, the 3-NN VJP of a deformable gather): batch
+//   element b = b0 groups + j is channel group j of b0; it reads its
+//   cotangent rows at channel offset j C with row stride groups C from the
+//   (B0, S, groups C) gradient and writes its dfeats rows into the (B0, M,
+//   groups C) table gradient the same way. Only the addresses change: the
+//   sort, the windows and the sums are those of element b, so the bits are
+//   those of the same call on the group's contiguous copy.
 //   Slabs fill the card at the deformable step's shapes (32 elements x 192
 //   channels or 16 x 384, 256-576 rows: one span, 4 or 8 slabs of 48
 //   channels, 128 blocks), each slab block sorting its element's terms
@@ -107,17 +114,20 @@ __device__ __forceinline__ void store(float* p, const float (&a)[1]) { *p = a[0]
 // V = 4: 16-byte chunks (width = C / 4 of them), V = 1: floats (width = C).
 // magic: floor((2^32 - 1) / K) + 1 where every term index t has t K < 2^32
 // (then s = t / K is (t magic) >> 32), else 0. counting: the sort takes its
-// counting pass (room for it after the sort's lists).
+// counting pass (room for it after the sort's lists). groups: element b is
+// group b % groups of b / groups, its rows groups width chunks apart.
 template <bool kShared, int V>
 __global__ void __launch_bounds__(kThreads, 1)
     dfeats_kernel(const float* __restrict__ w, const int64_t* __restrict__ idx,
                   const float* __restrict__ g, float* __restrict__ out, int* __restrict__ scratch,
                   int S, int K, int M, int shift, int width, int nch, int window,
-                  unsigned long long magic, int counting) {
+                  unsigned long long magic, int counting, int groups) {
   typedef typename std::conditional<V == 4, float4, float>::type T;
   extern __shared__ int4 dyn4[];  // 16-byte aligned
   int* dyn = reinterpret_cast<int*>(dyn4);
   const int64_t b = blockIdx.x;
+  const int64_t b0 = b / groups, jg = b - b0 * groups;
+  const int64_t ld = (int64_t)width * groups;  // a row of g and of out, in chunks
   const int nt = S * K;  // terms of the element
   const int span = kBins << shift;
   const int lo = blockIdx.y * span, nrow = min(span, M - lo);
@@ -156,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // pair p = (row p / nc, chunk p % nc) by one multiply (p nc < 2^32)
     const unsigned ncm = nc > 1 ? 0xffffffffu / nc + 1 : 0;
     auto row_of = [&](int p) { return nc > 1 ? (int)__umulhi((unsigned)p, ncm) : p; };
-    const T* gb = reinterpret_cast<const T*>(g) + b * S * (int64_t)width + c0;
+    const T* gb = reinterpret_cast<const T*>(g) + b0 * S * ld + jg * width + c0;
     // this thread's pairs tid + i kThreads: the sums, the list position of
     // each row's next entry (its sign bit set where that entry is the row's
     // last) and that entry's term (INT_MAX past the row's run)
@@ -181,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       T* sgb = sg + (wi & 1) * window * nch;
       for (int q = tid; q < ns * nc; q += kThreads) {
         const int sr = q / nc;
-        __pipeline_memcpy_async(sgb + q, gb + (int64_t)(s0 + sr) * width + (q - sr * nc), sizeof(T));
+        __pipeline_memcpy_async(sgb + q, gb + (int64_t)(s0 + sr) * ld + (q - sr * nc), sizeof(T));
       }
       float* swb = sw + (wi & 1) * window * K;
       for (int q = tid; q < ns * K; q += kThreads)
@@ -230,11 +240,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       __syncthreads();  // the buffer is free for window wi + 2
     }
-    T* dst = reinterpret_cast<T*>(out) + (b * M + lo) * (int64_t)width + c0;
+    T* dst = reinterpret_cast<T*>(out) + (b0 * M + lo) * ld + jg * width + c0;
 #pragma unroll
     for (int i = 0; i < kPairs; ++i) {
       const int p = tid + i * kThreads, r = row_of(p);
-      if (p < npairs) store(dst + (int64_t)r * width + (p - r * nc), acc[i]);
+      if (p < npairs) store(dst + (int64_t)r * ld + (p - r * nc), acc[i]);
     }
   }
 }
@@ -322,7 +332,7 @@ bool dfeats_vec4(int64_t C, const void* g, const void* out) {
 
 template <bool kShared, int V>
 cudaError_t launch_dfeats(const float* w, const int64_t* idx, const float* g, float* out, int* scratch,
-                          int64_t B, int64_t S, int64_t K, int64_t M, int64_t width,
+                          int64_t B, int64_t S, int64_t K, int64_t M, int64_t width, int64_t groups,
                           const DfeatsPlan& p, cudaStream_t st) {
   static bool attr_set[64] = {false};
   int dev = 0;
@@ -340,7 +350,7 @@ cudaError_t launch_dfeats(const float* w, const int64_t* idx, const float* g, fl
   const dim3 grid((unsigned)B, (unsigned)p.nspan, (unsigned)p.nslab);
   dfeats_kernel<kShared, V><<<grid, kThreads, p.smem, st>>>(
       w, idx, g, out, scratch, (int)S, (int)K, (int)M, p.shift, (int)width, p.nch, p.window, magic,
-      p.counting ? 1 : 0);
+      p.counting ? 1 : 0, (int)groups);
   return cudaGetLastError();
 }
 
@@ -472,16 +482,18 @@ extern "C" int64_t weighted_gather_sum_dfeats_scratch(int64_t B, int64_t S, int6
   return global ? B * (M + 2 * S * K) : 0;
 }
 
-// w (B, S, K), idx (B, S, K), g (B, S, C) -> dfeats (B, M, C), every element
-// written; scratch: weighted_gather_sum_dfeats_scratch(B, S, K, M, C) int32
-// entries.
+// w (B, S, K), idx (B, S, K), g (B / groups, S, groups C) -> dfeats (B /
+// groups, M, groups C), every element written: element b is channel group
+// b % groups of b / groups (groups = 1: g (B, S, C), dfeats (B, M, C));
+// scratch: weighted_gather_sum_dfeats_scratch(B, S, K, M, C) int32 entries.
 extern "C" int weighted_gather_sum_dfeats_f32(const float* w, const int64_t* idx, const float* g,
                                               float* dfeats, int* scratch, int64_t B, int64_t S,
-                                              int64_t K, int64_t M, int64_t C, void* stream) {
+                                              int64_t K, int64_t M, int64_t C, int64_t groups,
+                                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B * M * C == 0) return 0;
   if (B >= ((int64_t)1 << 31) || S * K >= ((int64_t)1 << 30) || M >= ((int64_t)1 << 30) ||
-      C >= ((int64_t)1 << 30))
+      C * groups >= ((int64_t)1 << 30) || groups < 1 || B % groups != 0)
     return (int)cudaErrorInvalidValue;
   const bool vec4 = dfeats_vec4(C, g, dfeats);
   const int64_t width = vec4 ? C / 4 : C;
@@ -489,10 +501,10 @@ extern "C" int weighted_gather_sum_dfeats_f32(const float* w, const int64_t* idx
   if (!dfeats_plan(B, S, K, M, width, vec4 ? 4 : 1, p) || p.nspan > 65535 || p.nslab > 65535)
     return (int)cudaErrorInvalidValue;
   if (p.shared)
-    return (int)(vec4 ? launch_dfeats<true, 4>(w, idx, g, dfeats, scratch, B, S, K, M, width, p, st)
-                      : launch_dfeats<true, 1>(w, idx, g, dfeats, scratch, B, S, K, M, width, p, st));
-  return (int)(vec4 ? launch_dfeats<false, 4>(w, idx, g, dfeats, scratch, B, S, K, M, width, p, st)
-                    : launch_dfeats<false, 1>(w, idx, g, dfeats, scratch, B, S, K, M, width, p, st));
+    return (int)(vec4 ? launch_dfeats<true, 4>(w, idx, g, dfeats, scratch, B, S, K, M, width, groups, p, st)
+                      : launch_dfeats<true, 1>(w, idx, g, dfeats, scratch, B, S, K, M, width, groups, p, st));
+  return (int)(vec4 ? launch_dfeats<false, 4>(w, idx, g, dfeats, scratch, B, S, K, M, width, groups, p, st)
+                    : launch_dfeats<false, 1>(w, idx, g, dfeats, scratch, B, S, K, M, width, groups, p, st));
 }
 
 // idx (B, S, K), g (B, S, C), feats (B, M, C) -> dw (B, S, K).

@@ -12,7 +12,7 @@
 each with the two-phase neighbour search of the denoise task where the JAX
 package has it. The deformable gather predicts 3-D offsets of the
 neighbour positions and re-samples the values there by inverse-distance
-3-NN interpolation (:func:`ops.three_nn_interpolate`, kernel
+3-NN interpolation (:func:`ops.three_nn_interpolate_grouped`, kernel
 ``csrc/three_nn_interpolate.cu``). Parameters carry the reference names
 (``proj_q``, ``proj_k``, ``proj_v``, ``proj_v_off``, ``linear_offset.{0,1,3}``,
 ``proj`` or ``knn_map.0``). ``ImprovedDeformableLocalCrossAttention`` is not
@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import index_points, knn_point, three_nn_interpolate
+from ..ops import index_points, knn_point, three_nn_interpolate_grouped
 from .layers import Linear, leaky_relu
 
 
@@ -60,26 +60,27 @@ def grouped_deform_gather(offsets: nn.Module, q_proj, v, v_off_local, local_v_po
     re-sampled there by 3-NN interpolation over ``v_pos`` (B, M, 3).
     Returns (B, N, k, C).
 
-    The shifted positions are detached: interpolation has no gradient in
-    its positions (pointnet2's ``three_nn``), so ``linear_offset`` and
-    ``proj_v_off`` get none, as in the JAX package, and their ``grad``
-    stays None."""
+    One call of :func:`ops.three_nn_interpolate_grouped` does every group:
+    it adds the offsets to the positions, reads ``v_pos`` and each group's
+    channels of ``v`` in place and writes (B, N k, C) in this order, where
+    the JAX package copies the positions and values into group-major order
+    and the result back. The shifted positions are detached: interpolation
+    has no gradient in its positions (pointnet2's ``three_nn``), so
+    ``linear_offset`` and ``proj_v_off`` get none, as in the JAX package,
+    and their ``grad`` stays None."""
     B, N, k, C = v_off_local.shape
-    g, M = n_group, v.shape[1]
+    g = n_group
     cg = C // g
     off_local_v = v_off_local.reshape(B, N, k, g, cg).permute(0, 3, 1, 2, 4)  # b g n k c
     group_q = q_proj.reshape(B, N, g, cg).permute(0, 2, 1, 3)  # b g n c
     shift_feat = torch.cat([off_local_v, group_q[:, :, :, None].expand(B, g, N, k, cg)], dim=-1)
     offset = offsets(shift_feat)  # (B, g, N, k, 3)
-    pos = local_v_pos[:, None].expand(B, g, N, k, 3)
     if scale_by_bbox:
-        extent = pos.amax(dim=-2) - pos.amin(dim=-2)  # (B, g, N, 3)
-        offset = offset * (0.5 * extent[..., None, :])
-    shift = (pos + offset).detach().reshape(B * g, N * k, 3)
-    v_pos_g = v_pos[:, None].expand(B, g, M, 3).reshape(B * g, M, 3)
-    v_g = v.reshape(B, M, g, cg).permute(0, 2, 1, 3).reshape(B * g, M, cg)
-    interp = three_nn_interpolate(shift, v_pos_g, v_g)  # (B g, N k, cg)
-    return interp.reshape(B, g, N, k, cg).permute(0, 2, 3, 1, 4).reshape(B, N, k, C)
+        extent = local_v_pos.amax(dim=-2) - local_v_pos.amin(dim=-2)  # (B, N, 3)
+        offset = offset * (0.5 * extent[:, None, :, None, :])
+    interp = three_nn_interpolate_grouped(local_v_pos.reshape(B, N * k, 3),
+                                          offset.reshape(B, g, N * k, 3), v_pos, v)
+    return interp.reshape(B, N, k, C)
 
 
 def local_cross_attn(q_proj, k_feat, v_feat, num_heads: int, scale: float) -> torch.Tensor:

@@ -41,6 +41,8 @@ from .pointops import (
     three_interpolate,
     three_nn,
     three_nn_interpolate,
+    three_nn_interpolate_grouped,
+    three_nn_interpolate_grouped_plain,
     three_nn_interpolate_plain,
     three_weights,
 )
@@ -58,5 +60,6 @@ __all__ = [
     "weighted_gather_sum_dweights", "weighted_gather_sum_dweights_plain", "auction_top2",
     "auction_top2_plain", "emd_auction", "emd_distance_metric", "mxu_eval_chamfer_active",
     "nn_argmin_bidir_mxu", "nn_argmin_bidir_mxu_plain", "three_interpolate", "three_nn",
-    "three_nn_interpolate", "three_nn_interpolate_plain", "three_weights",
+    "three_nn_interpolate", "three_nn_interpolate_grouped", "three_nn_interpolate_grouped_plain",
+    "three_nn_interpolate_plain", "three_weights",
 ]

@@ -45,10 +45,11 @@ _SIGNATURES = {
     "scatter_add_rows_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "nn_one_direction_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "weighted_gather_sum_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
-    "weighted_gather_sum_dfeats_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "weighted_gather_sum_dfeats_f32": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P],
     "weighted_gather_sum_dweights_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     "auction_top2_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
-    "three_nn_interpolate_f32": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, ctypes.c_float, _P],
+    "three_nn_interpolate_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, ctypes.c_float,
+                                 _P],
     "nn_bidir_mxu_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
 

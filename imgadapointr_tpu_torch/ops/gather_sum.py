@@ -63,13 +63,20 @@ def weighted_gather_sum_plain(w: torch.Tensor, idx: torch.Tensor,
 
 
 def weighted_gather_sum_dfeats_plain(w: torch.Tensor, idx: torch.Tensor, g: torch.Tensor,
-                                     n_rows: int) -> torch.Tensor:
+                                     n_rows: int, groups: int = 1) -> torch.Tensor:
     """Plain version of :func:`weighted_gather_sum_dfeats`: the (B, S, K, C)
     terms ``w · g`` (each product rounded once) added into their rows with
     ``index_add_``, an out-of-range term as zero. On the CPU each element is
     the sum of its terms in increasing flat (s, m) order, starting from zero,
     which the kernel repeats (``tests/test_torch_branch_train.py`` holds the
-    plain version to that order)."""
+    plain version to that order). With ``groups`` > 1 the cotangent's channel
+    groups are copied into group-major order first and the result back."""
+    if groups > 1:
+        Bo, S, C = g.shape
+        cg = C // groups
+        g = g.reshape(Bo, S, groups, cg).permute(0, 2, 1, 3).reshape(Bo * groups, S, cg)
+        out = weighted_gather_sum_dfeats_plain(w, idx, g, n_rows)
+        return out.reshape(Bo, groups, n_rows, cg).permute(0, 2, 1, 3).reshape(Bo, n_rows, C)
     B, S, K = w.shape
     C = g.shape[-1]
     terms = (w[..., None] * g[:, :, None, :]).masked_fill(_invalid(idx, n_rows)[..., None], 0.0)
@@ -87,13 +94,14 @@ def weighted_gather_sum_dweights_plain(idx: torch.Tensor, g: torch.Tensor,
 
 
 def _check(name: str, w: torch.Tensor | None, idx: torch.Tensor, n_rows: int,
-           other: torch.Tensor) -> None:
+           other: torch.Tensor, groups: int = 1) -> None:
     """Raise unless idx (B, S, K) int64 indexes a table of ``n_rows`` rows,
-    ``w`` (when given) has its shape, and ``other`` is a (B, *, C) tensor."""
+    ``w`` (when given) has its shape, and ``other`` is a (B / groups, *,
+    groups C) tensor."""
     if (idx.dim() != 3 or (w is not None and w.shape != idx.shape) or other.dim() != 3
-            or other.shape[0] != idx.shape[0]):
+            or groups < 1 or other.shape[0] * groups != idx.shape[0] or other.shape[2] % groups):
         raise ValueError(
-            f"{name}: w and idx (B, S, K) and a (B, *, C) tensor expected, got "
+            f"{name}: w and idx (B, S, K) and a (B / {groups}, *, {groups} C) tensor expected, got "
             f"{None if w is None else tuple(w.shape)}, {tuple(idx.shape)} and {tuple(other.shape)}"
         )
     if n_rows == 0:
@@ -136,7 +144,7 @@ def _dfeats_scratch(B: int, S: int, K: int, n_rows: int, C: int) -> int:
 
 
 def weighted_gather_sum_dfeats(w: torch.Tensor, idx: torch.Tensor, g: torch.Tensor,
-                               n_rows: int) -> torch.Tensor:
+                               n_rows: int, groups: int = 1) -> torch.Tensor:
     """``dfeats[b, j, :] = Σ_{s, m: idx[b, s, m] = j} w[b, s, m] · g[b, s, :]``:
     (B, n_rows, C), the gradient of the forward's table for the cotangent
     ``g`` (B, S, C). On the card one kernel sorts each batch element's terms
@@ -144,20 +152,27 @@ def weighted_gather_sum_dfeats(w: torch.Tensor, idx: torch.Tensor, g: torch.Tens
     16384 terms, else in int32 scratch allocated here), then adds each
     row's terms in (s, m) order: every element is the plain version's
     float32 sum in the same order, so the kernel is bit-equal to the plain
-    version on the CPU and two runs give the same bits."""
-    _check("weighted_gather_sum_dfeats", w, idx, n_rows, g)
+    version on the CPU and two runs give the same bits.
+
+    With ``groups`` > 1, w and idx are (B g, S, K) and g is (B, S, g C):
+    batch element b g + j is channel group j of b, reading its cotangent at
+    channels [j C, (j + 1) C) of g and writing its rows there in the (B,
+    n_rows, g C) result (the grouped 3-NN interpolation's VJP). The kernel
+    reads and writes in place; its bits are those of the same call on the
+    groups' contiguous copies."""
+    _check("weighted_gather_sum_dfeats", w, idx, n_rows, g, groups)
     if _on_cpu("weighted_gather_sum_dfeats", g):
-        return weighted_gather_sum_dfeats_plain(w, idx, g, n_rows)
+        return weighted_gather_sum_dfeats_plain(w, idx, g, n_rows, groups)
     _require_kernel_inputs("weighted_gather_sum_dfeats", idx, g, w)
     B, S, K = w.shape
-    C = g.shape[2]
-    out = torch.empty(B, n_rows, C, dtype=g.dtype, device=g.device)
+    C = g.shape[2] // groups
+    out = torch.empty(g.shape[0], n_rows, g.shape[2], dtype=g.dtype, device=g.device)
     n_scratch = _dfeats_scratch(B, S, K, n_rows, C)
     scratch = torch.empty(n_scratch, dtype=torch.int32, device=g.device) if n_scratch else None
     _build.launch(
         "weighted_gather_sum_dfeats", "weighted_gather_sum_dfeats_f32", g.device,
         w.data_ptr(), idx.data_ptr(), g.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), B, S, K, n_rows, C,
+        None if scratch is None else scratch.data_ptr(), B, S, K, n_rows, C, groups,
     )
     return out
 

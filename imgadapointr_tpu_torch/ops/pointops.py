@@ -10,8 +10,10 @@ version of the same function beside it:
   (``csrc/scatter_add_rows.cu``), the gather's backward
 - :func:`knn_with_distance` / :func:`knn_plain` (``csrc/knn.cu``)
 - :func:`furthest_point_sample` / :func:`fps_plain` (``csrc/fps.cu``)
-- :func:`three_nn_interpolate` / :func:`three_nn_interpolate_plain`
-  (``csrc/three_nn_interpolate.cu``), whose backward is the weighted
+- :func:`three_nn_interpolate` / :func:`three_nn_interpolate_plain` and
+  :func:`three_nn_interpolate_grouped` /
+  :func:`three_nn_interpolate_grouped_plain` (one kernel,
+  ``csrc/three_nn_interpolate.cu``), whose backward is the weighted
   gather-sum's ``dfeats`` kernel
 
 A wrapper launches its kernel for a CUDA tensor and raises on a dtype,
@@ -341,6 +343,53 @@ def three_nn_interpolate_plain(unknown: torch.Tensor, known: torch.Tensor, feats
     return three_interpolate(feats, idx, w), idx, w
 
 
+def three_nn_interpolate_grouped_plain(pos: torch.Tensor, offset: torch.Tensor, known: torch.Tensor,
+                                       v: torch.Tensor, eps: float = 1e-8):
+    """Plain version of the grouped kernel: the deformable gather's
+    composition (``imgadapointr_tpu/nn/local_attention.py:80-88``): the
+    queries ``pos + offset`` (B g, S, 3), one copy of ``known`` a group, ``v``
+    in group-major order (B g, M, cg), :func:`three_nn_interpolate_plain`,
+    and the result permuted back. Returns (out (B, S, C), idx (B, g, S, 3),
+    weight (B, g, S, 3))."""
+    B, S, _ = pos.shape
+    g, (M, C) = offset.shape[1], v.shape[1:]
+    cg = C // g
+    shift = (pos[:, None] + offset).reshape(B * g, S, 3)
+    known_g = known[:, None].expand(B, g, M, 3).reshape(B * g, M, 3)
+    v_g = v.reshape(B, M, g, cg).permute(0, 2, 1, 3).reshape(B * g, M, cg)
+    out, idx, w = three_nn_interpolate_plain(shift, known_g, v_g, eps)
+    out = out.reshape(B, g, S, cg).permute(0, 2, 1, 3).reshape(B, S, C)
+    return out, idx.reshape(B, g, S, 3), w.reshape(B, g, S, 3)
+
+
+def _three_nn_interpolate_launch(pos: torch.Tensor, offset: torch.Tensor | None, known: torch.Tensor,
+                                 feats: torch.Tensor, eps: float):
+    """The kernel on CUDA tensors: (out (B, S, C), idx and w (B, G, S, 3),
+    with G = 1 and no add where ``offset`` is None)."""
+    name = "three_nn_interpolate"
+    dev = feats.device
+    _build.require_cuda_f32(name, dev, pos, known, feats)
+    if offset is not None:
+        _build.require_cuda_f32(name, dev, offset, ndim=4)
+    B, S, _ = pos.shape
+    M, C = feats.shape[1], feats.shape[2]
+    G = 1 if offset is None else offset.shape[1]
+    out = torch.empty(B, S, C, dtype=torch.float32, device=dev)
+    idx = torch.empty(B, G, S, 3, dtype=torch.int64, device=dev)
+    w = torch.empty(B, G, S, 3, dtype=torch.float32, device=dev)
+    _build.launch(
+        name, "three_nn_interpolate_f32", dev,
+        pos.data_ptr(), None if offset is None else offset.data_ptr(), known.data_ptr(),
+        feats.data_ptr(), out.data_ptr(), idx.data_ptr(), w.data_ptr(), B, S, M, C, G, eps,
+    )
+    return out, idx, w
+
+
+def _check_known(name: str, known: torch.Tensor) -> None:
+    if known.shape[1] < 3:
+        raise ValueError(f"{name}: needs at least 3 known points, got {known.shape[1]}")
+
+
 def _three_nn_interpolate_forward(unknown: torch.Tensor, known: torch.Tensor,
                                   feats: torch.Tensor, eps: float):
     """The fused forward without autograd: the kernel for CUDA tensors,
@@ -352,22 +401,30 @@ def _three_nn_interpolate_forward(unknown: torch.Tensor, known: torch.Tensor,
             f"three_nn_interpolate: unknown (B, N, 3), known (B, M, 3) and feats (B, M, C) "
             f"expected, got {tuple(unknown.shape)}, {tuple(known.shape)} and {tuple(feats.shape)}"
         )
-    if known.shape[1] < 3:
-        raise ValueError(f"three_nn_interpolate: needs at least 3 known points, got {known.shape[1]}")
+    _check_known("three_nn_interpolate", known)
     if _on_cpu("three_nn_interpolate", feats):
         return three_nn_interpolate_plain(unknown, known, feats, eps)
-    _build.require_cuda_f32("three_nn_interpolate", feats.device, unknown, known, feats)
-    B, N, _ = unknown.shape
-    M, C = feats.shape[1], feats.shape[2]
-    out = torch.empty(B, N, C, dtype=torch.float32, device=feats.device)
-    idx = torch.empty(B, N, 3, dtype=torch.int64, device=feats.device)
-    w = torch.empty(B, N, 3, dtype=torch.float32, device=feats.device)
-    _build.launch(
-        "three_nn_interpolate", "three_nn_interpolate_f32", feats.device,
-        unknown.data_ptr(), known.data_ptr(), feats.data_ptr(), out.data_ptr(), idx.data_ptr(),
-        w.data_ptr(), B, N, M, C, eps,
-    )
-    return out, idx, w
+    out, idx, w = _three_nn_interpolate_launch(unknown, None, known, feats, eps)
+    return out, idx[:, 0], w[:, 0]
+
+
+def _three_nn_interpolate_grouped_forward(pos: torch.Tensor, offset: torch.Tensor,
+                                          known: torch.Tensor, v: torch.Tensor, eps: float):
+    """The grouped forward without autograd: the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if (pos.dim() != 3 or offset.dim() != 4 or known.dim() != 3 or v.dim() != 3
+            or not pos.shape[0] == offset.shape[0] == known.shape[0] == v.shape[0]
+            or offset.shape[2:] != pos.shape[1:] or pos.shape[-1] != 3 or known.shape[-1] != 3
+            or v.shape[1] != known.shape[1] or offset.shape[1] < 1 or v.shape[2] % offset.shape[1]):
+        raise ValueError(
+            f"three_nn_interpolate_grouped: pos (B, S, 3), offset (B, g, S, 3), known (B, M, 3) "
+            f"and v (B, M, C) with C % g == 0 expected, got {tuple(pos.shape)}, "
+            f"{tuple(offset.shape)}, {tuple(known.shape)} and {tuple(v.shape)}"
+        )
+    _check_known("three_nn_interpolate_grouped", known)
+    if _on_cpu("three_nn_interpolate_grouped", v):
+        return three_nn_interpolate_grouped_plain(pos, offset, known, v, eps)
+    return _three_nn_interpolate_launch(pos, offset, known, v, eps)
 
 
 class _ThreeNNInterpolate(torch.autograd.Function):
@@ -402,9 +459,54 @@ def three_nn_interpolate(unknown: torch.Tensor, known: torch.Tensor, feats: torc
     ``w_i = (1/(d_i+eps)) / Σ_j 1/(d_j+eps)`` with euclidean ``d``, the 3
     nearest by diff-form distance, first index on ties (the reference's
     ``three_nn`` + ``three_interpolate`` chain). One kernel,
-    ``csrc/three_nn_interpolate.cu``, on a CUDA tensor at every shape (the
-    TPU's size gate, ``imgadapointr_tpu/ops/pointops.py:254-263``, is a VMEM
-    limit); the plain version on a CPU tensor. Differentiable in ``feats``
-    only: the positions are detached, as the JAX package stops them."""
+    ``csrc/three_nn_interpolate.cu`` (the one-group case of
+    :func:`three_nn_interpolate_grouped`'s), on a CUDA tensor at every shape
+    (the TPU's size gate, ``imgadapointr_tpu/ops/pointops.py:254-263``, is a
+    VMEM limit); the plain version on a CPU tensor. Differentiable in
+    ``feats`` only: the positions are detached, as the JAX package stops
+    them."""
     return _ThreeNNInterpolate.apply(unknown.detach().contiguous(), known.detach().contiguous(),
                                      feats.contiguous(), float(eps))
+
+
+class _ThreeNNInterpolateGrouped(torch.autograd.Function):
+    """The grouped forward and its VJP: group j's ``dv[b, idx, j cg : (j +
+    1) cg] += w * g[b, s, j cg : (j + 1) cg]``, the ``dfeats`` kernel reading
+    the (B, S, C) cotangent and writing the (B, M, C) gradient in place, one
+    batch element a group. The positions and offsets get no gradient."""
+
+    @staticmethod
+    def forward(ctx, pos, offset, known, v, eps):
+        out, idx, w = _three_nn_interpolate_grouped_forward(pos, offset, known, v, eps)
+        ctx.save_for_backward(idx, w)
+        ctx.rows = v.shape[1]
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from .gather_sum import weighted_gather_sum_dfeats
+
+        idx, w = ctx.saved_tensors
+        dv = None
+        if ctx.needs_input_grad[3]:
+            B, G, S, _ = idx.shape
+            dv = weighted_gather_sum_dfeats(w.reshape(B * G, S, 3), idx.reshape(B * G, S, 3),
+                                            g.contiguous(), ctx.rows, groups=G)
+        return None, None, None, dv, None
+
+
+def three_nn_interpolate_grouped(pos: torch.Tensor, offset: torch.Tensor, known: torch.Tensor,
+                                 v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """The deformable gather's interpolation, one call for every channel
+    group: for group j < g the queries ``pos + offset[:, j]`` (pos (B, S, 3),
+    offset (B, g, S, 3)) interpolate channels ``[j cg, (j + 1) cg)`` of ``v``
+    (B, M, C), ``cg = C / g``, at the ``known`` (B, M, 3) points, as
+    :func:`three_nn_interpolate` does. Returns (B, S, C), group j's result
+    in its own channel slice: the result of
+    :func:`three_nn_interpolate_grouped_plain`, which makes the layout copies
+    that the kernel (``csrc/three_nn_interpolate.cu``) folds into its reads
+    and writes. Differentiable in ``v`` only; the backward is the
+    ``dfeats`` kernel on the cotangent in place."""
+    return _ThreeNNInterpolateGrouped.apply(pos.detach().contiguous(), offset.detach().contiguous(),
+                                            known.detach().contiguous(), v.contiguous(), float(eps))

@@ -34,7 +34,7 @@ def dataset_builder(args, dataset_cfg):
     if name != "SyntheticPCN":
         raise NotImplementedError(
             f"dataset {name!r}: only SyntheticPCN (--synthetic) is ported; the PCN and "
-            "ShapeNet readers wait for dataset files (ROADMAP Queue 1: dataset readers)"
+            "ShapeNet readers are not ported yet (ROADMAP Queue 1 item 1: dataset readers)"
         )
     dataset = SyntheticPCN(dataset_cfg)
     is_train = dataset_cfg.others.subset == "train"

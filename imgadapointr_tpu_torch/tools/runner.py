@@ -282,7 +282,8 @@ def test(runner: Runner, test_loader, args, config, logger=None) -> dict:
     name = config.dataset.test.get("NAME", "")
     if name == "KITTI" or ("ShapeNet" in name and "PCN" not in name):
         raise NotImplementedError(
-            f"test protocol of {name} is not ported (ROADMAP Queue 1: multi-GPU and protocols)"
+            f"test protocol of {name} is not ported (ROADMAP Queue 1 item 1: dataset readers and the "
+            "other test protocols)"
         )
     require_emd = bool(getattr(args, "emd", True))
     print_log(f"[TEST] PCN protocol; EMD {'on' if require_emd else 'off (--no_emd)'}", logger)

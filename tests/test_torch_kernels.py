@@ -557,6 +557,90 @@ def test_three_nn_interpolate_kernel_edges_and_backward(dev):
         ops.pointops._three_nn_interpolate_forward(known.double(), known.double(), feats.double(), 1e-8)
 
 
+@pytest.mark.parametrize("B,G,S,M,C", [
+    (8, 2, 2048, 256, 384), (8, 1, 4096, 512, 384), (8, 2, 4096, 512, 384), (16, 2, 4608, 576, 384),
+    (16, 1, 4608, 256, 384),
+    # group widths off 4, M = 3, M past the shared-memory copy (known read from global memory)
+    (2, 3, 77, 50, 15), (2, 2, 100, 3, 10), (2, 2, 333, 5000, 8)])
+def test_three_nn_interpolate_grouped_kernel_equals_plain(dev, B, G, S, M, C):
+    """The grouped kernel (offsets added in the kernel, v and the result in
+    the (B, S, C) layout): indices equal, weights and outputs bit-equal to
+    the plain composition, at the deformable request's and step's shapes
+    and ragged ones; queries on known points (a zero offset) included."""
+    g = torch.Generator().manual_seed(S + M + C + G)
+    known = _cloud(g, B, M, 3, device=dev)
+    pick = torch.randint(0, M, (B, S), generator=g).to(dev)
+    pos = torch.gather(known, 1, pick[..., None].expand(B, S, 3)).contiguous()
+    offset = ((torch.rand(B, G, S, 3, generator=g) - 0.5) * 0.2).to(dev)
+    offset[:, :, ::7] = 0.0
+    v = _cloud(g, B, M, C, device=dev)
+    out, idx, w = _launched("three_nn_interpolate", lambda: ops.pointops._three_nn_interpolate_grouped_forward(
+        pos, offset, known, v, 1e-8))
+    pout, pidx, pw = ops.three_nn_interpolate_grouped_plain(pos, offset, known, v)
+    assert torch.equal(idx, pidx)
+    assert torch.equal(w, pw) and torch.equal(out, pout)
+
+
+def test_three_nn_interpolate_grouped_backward_reads_the_cotangent_in_place(dev):
+    """The grouped op's gradient in v is the dfeats kernel by groups, bit-equal
+    to the old composition's (the ungrouped op on group-major copies) and to
+    the CPU plain version; strided dfeats equals dfeats on a contiguous copy
+    of each group's cotangent, bit for bit, at a deformable step's shape."""
+    g = torch.Generator().manual_seed(11)
+    B, G, S, M, C = 16, 2, 4608, 576, 384
+    known = _cloud(g, B, M, 3, device=dev)
+    pos = _cloud(g, B, S, 3, device=dev) * 0.5
+    offset = ((torch.rand(B, G, S, 3, generator=g) - 0.5) * 0.2).to(dev)
+    v = _cloud(g, B, M, C, device=dev)
+    cot = _cloud(g, B, S, C, device=dev)
+    grads = []
+    for grouped in (True, False):
+        vv = v.clone().requires_grad_()
+        if grouped:
+            out = ops.three_nn_interpolate_grouped(pos, offset, known, vv)
+        else:
+            shift = (pos[:, None] + offset).reshape(B * G, S, 3)
+            known_g = known[:, None].expand(B, G, M, 3).reshape(B * G, M, 3)
+            v_g = vv.reshape(B, M, G, C // G).permute(0, 2, 1, 3).reshape(B * G, M, C // G)
+            out = ops.three_nn_interpolate(shift, known_g, v_g).reshape(B, G, S, C // G).permute(
+                0, 2, 1, 3).reshape(B, S, C)
+        out.backward(cot)
+        grads.append(vv.grad)
+    assert torch.equal(grads[0], grads[1])
+    _, idx, w = ops.three_nn_interpolate_grouped_plain(pos, offset, known, v)
+    idx, w = idx.reshape(B * G, S, 3).contiguous(), w.reshape(B * G, S, 3).contiguous()
+    strided = _launched("weighted_gather_sum_dfeats",
+                        lambda: ops.weighted_gather_sum_dfeats(w, idx, cot, M, groups=G))
+    flat = cot.reshape(B, S, G, C // G).permute(0, 2, 1, 3).contiguous().reshape(B * G, S, C // G)
+    contiguous = ops.weighted_gather_sum_dfeats(w, idx, flat, M)
+    assert torch.equal(strided, contiguous.reshape(B, G, M, C // G).permute(0, 2, 1, 3).reshape(B, M, C))
+    assert torch.equal(strided, grads[0])
+    assert torch.equal(strided.cpu(), ops.weighted_gather_sum_dfeats_plain(w.cpu(), idx.cpu(), cot.cpu(), M,
+                                                                           groups=G))
+
+
+@pytest.mark.parametrize("B,S,K,M,C", [(8, 512, 63, 512, 64), (16, 512, 63, 512, 64), (3, 77, 40, 130, 12),
+                                       (2, 33, 5, 20, 1100), (2, 70, 9, 40, 3)])
+def test_weighted_gather_sum_kernel_two_launches_and_bad_rows(dev, B, S, K, M, C):
+    """Two launches give the same bits (each output's terms added in
+    ascending m); a table row of inf and NaN that only out-of-range indices
+    reach (they read a clamped row and skip it) leaves every output finite."""
+    g = torch.Generator().manual_seed(S + K + M)
+    w = _cloud(g, B, S, K, device=dev)
+    idx = torch.randint(1, M, (B, S, K), generator=g).to(dev)
+    idx[..., ::4] = -1
+    idx[..., 1::5] = M + 3
+    feats = _cloud(g, B, M, C, device=dev)
+    feats[:, 0, ::2] = float("inf")
+    feats[:, 0, 1::2] = float("nan")
+    got = ops.weighted_gather_sum(w, idx, feats)
+    assert torch.equal(got, ops.weighted_gather_sum(w, idx, feats))
+    assert bool(torch.isfinite(got).all())
+    want = ops.weighted_gather_sum_plain(w, idx, feats)
+    room = 1e-5 * ops.weighted_gather_sum_plain(w.abs(), idx, feats.abs())
+    assert bool(((got - want).abs() <= room).all())
+
+
 def _mxu_plain_dist(q, r, idx, q_is_x):
     """d~ of each point of q and its pick r[idx] in the plain version's
     arithmetic (x in the x role), and the pair's |x|^2 + |y|^2."""
