@@ -107,8 +107,54 @@ Phases; any failure exits non-zero and prints no result line:
    trainable parameter moved, a profiled step, one step's gradients twice
    from the same state (``step_determinism``: every parameter's gradient
    must be bit-equal), and one step at batch 2 against the CPU (loss 1e-4,
-   gradient norm 1e-3, relative).
+   gradient norm 1e-3, relative);
+8. the recipes from trees on disk, written with the port's ``IO.put`` into
+   a temporary directory in the layouts the dataset configs name (numpy
+   only), read by the port's readers and loader, at full width:
+   - PCN (``cfgs/PCN_models/AdaPoinTr.yaml``: binary ``.pcd``, 16384-point
+     complete clouds, partials of 1400-2700 points, 8 renders): the
+     loader's batches with 2 worker processes equal to the reader's made
+     in this process in the JAX loader's order, and the workers stopped;
+     1 warm-up and ``TRAIN_STEPS`` steps at batch 16 with the flagship's
+     launch table, a profiled step; ``validate`` and ``test`` (EMD) on 2
+     clouds at batch 1 and at ``--val_bs`` ``B_VAL``, with their tables,
+     every metric but EMD equal across the two batch sizes to 1e-5; the
+     auction EMD on the same dense clouds at batch ``B_VAL`` and one cloud
+     at a time (``emd_batch_check``: assignments equal), beside the EMD of
+     each cloud's own batch-1 forward; one checkpoint save timed
+     (``--save_freq``'s cost);
+   - ShapeNet-55 (``cfgs/ShapeNet55_models/AdaPoinTr.yaml``: 8192-point
+     ``.npy`` clouds): 1 warm-up and ``TRAIN_STEPS`` steps at total_bs 64
+     with the train crop (the table adds its FPS, 64 x 8192 -> 2048, and
+     its two gathers), a profiled step, the crop profiled alone (its FPS's
+     in-path time); the 8-viewpoint test on 2 clouds at ``B_VAL`` in
+     ``easy``, ``median`` and ``hard`` with their tables; one crop of 2
+     clouds, its FPS and the forward against the CPU through the plain
+     versions (centres, orders, kept clouds and picks equal; clouds as sets
+     and CD-L1 within phase 3's band);
+   - the KITTI finetune (``cfgs/KITTI_models/AdaPoinTr.yaml``: PCN cars, the
+     ``CARS`` filter): 1 warm-up and ``TRAIN_STEPS`` steps at batch 16 with
+     the train dropping (the table adds its FPS, 16 x 2048 -> 768, and its
+     gather), a profiled step. The KITTI test protocol draws its images
+     with matplotlib, which the card's machine lacks, so it is not driven
+     here (``tests/test_torch_recipes.py`` drives it on the CPU).
+   Each recipe prints its median step (host clock), one profiled step's
+   device busy and launches, the peak memory and the loader's host time a
+   batch.
 
+Phase 2 also holds FPS at the recipes' shapes (the ShapeNet-55 train
+crop's 64 x 8192 -> 2048 on crop clouds whose cropped rows are copies of
+the farthest point, up to 6144 of them; the test crops' 16 x 6144 | 4096 |
+2048 -> 2048; the KITTI dropping's 16 x 2048 -> 768 on zero-padded
+partials), the gather at the crops' shapes and the bidirectional argmin at
+64 x 8192 x 8192, and times the crop's FPS call by graph replay beside the
+request's (``crop_*`` in the ``kernels`` line). It holds kNN, FPS, the
+gather, the bidirectional argmin and the scatter-add at every shape of
+the recipes' model calls too: the ShapeNet-55 train step at batch 64 (its
+denoise search of 64 queries against 8192 points among them), its test
+batch's eval calls at 8 viewpoints x ``B_VAL``, and the PCN validate and
+test at batch 1 and ``B_VAL`` (kNN's chunk count, among others, depends on
+the batch).
 Phase 2 holds kNN at every request, step, normals and deformable shape
 and at probes (M below 32, M off the tile and the chunk, one query, k =
 64, points duplicated half a cloud apart on the split route so that ties
@@ -156,6 +202,7 @@ line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import shutil
@@ -171,16 +218,20 @@ import torch
 
 from imgadapointr_tpu_torch import ops
 from imgadapointr_tpu_torch.datasets import SyntheticPCN
+from imgadapointr_tpu_torch.datasets.loader import base_seed
+from imgadapointr_tpu_torch.datasets.synthetic import _surface_points
 from imgadapointr_tpu_torch.main import swap_synthetic
 from imgadapointr_tpu_torch.models import build_model
 from imgadapointr_tpu_torch.models import gdanet as port_gdanet
 from imgadapointr_tpu_torch.nn.blocks import _parse_style
-from imgadapointr_tpu_torch.ops import _build, chamfer, pointops
+from imgadapointr_tpu_torch.ops import _build, chamfer, pointops, sampling
+from imgadapointr_tpu_torch.ops import emd as port_emd
 from imgadapointr_tpu_torch.tools import runner as port_runner
 from imgadapointr_tpu_torch.tools.builder import dataset_builder
 from imgadapointr_tpu_torch.utils.checkpoint import load_checkpoint
 from imgadapointr_tpu_torch.utils.config import cfg_from_yaml_file
-from imgadapointr_tpu_torch.utils.metrics import eval_metric_suite
+from imgadapointr_tpu_torch.utils.io_module import IO
+from imgadapointr_tpu_torch.utils.metrics import compute_metrics_per_sample, eval_metric_suite
 
 CONFIG = "cfgs/PCN_models/AdaPoinTr.yaml"
 SUPERSET = "cfgs/SegImgPCN_models/ImgEncSegDecAdaPoinTrVariableLoss.yaml"
@@ -193,6 +244,14 @@ B_TRAIN = 16  # the config's total_bs
 TRAIN_STEPS = 5
 DENOISE = 64  # denoise queries of a train step
 EVAL_CLOUDS = 2  # clouds validated, and clouds tested, at batch size 1
+# the recipes of phase 8: ShapeNet-55 (8192-point clouds, total_bs 64, the
+# train crop) and the KITTI finetune (PCN cars, the train dropping)
+SHAPENET = "cfgs/ShapeNet55_models/AdaPoinTr.yaml"
+KITTI = "cfgs/KITTI_models/AdaPoinTr.yaml"
+B_SHAPENET = 64
+N_SHAPENET = 8192
+B_VAL = 2  # phase 8's --val_bs
+DROP_POINTS = 768  # the dropping's FPS prefix (ops/sampling.py:random_dropping)
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s,
 # float32 outside the tensor cores, and dense bf16 products with float32
 # sums in the tensor cores (the rate of the matmul-form argmin's cross term,
@@ -702,23 +761,62 @@ def fps_step_cycles(n: int) -> int:
     return -(-n // 128) * FPS_SLOTS_POINT + FPS_CHAIN_CYCLES
 
 
+def crop_cloud(g, dev) -> torch.Tensor:
+    """A batch of what the ShapeNet-55 train crop hands FPS (64 x 8192):
+    sphere clouds sorted by distance to a random unit direction, their
+    nearest ``num_crop`` rows replaced by copies of the farthest point; the
+    first two clouds cropped by the least and the most (2048 and 6144)."""
+    gt = sphere(g, B_SHAPENET, N_SHAPENET, dev)
+    center = sampling._unit_center(torch.randn(B_SHAPENET, 1, 3, generator=g).to(dev))
+    num_crop = torch.randint(N_SHAPENET // 4, 3 * N_SHAPENET // 4 + 1, (B_SHAPENET, 1), generator=g)
+    num_crop[0], num_crop[1] = N_SHAPENET // 4, 3 * N_SHAPENET // 4
+    return sampling.train_crop_kept(gt, center, num_crop.to(dev))
+
+
+def recipe_fps_inputs(g, dev) -> list:
+    """(cloud, picks) at the recipes' FPS shapes (phase 8), made by the
+    recipes' own transforms: the ShapeNet-55 train crop (:func:`crop_cloud`,
+    -> 2048); the test crops of ``B_VAL`` clouds towards the 8 viewpoints in
+    each mode (16 x 6144 | 4096 | 2048 -> 2048, viewpoint-major as
+    ``Runner.crop_eval_rows`` builds them); the KITTI dropping's partials
+    (16 x 2048 -> 768, zero rows past each cloud's points, as the PCN
+    reader pads them)."""
+    out = [(crop_cloud(g, dev), N_PARTIAL)]
+    views = port_runner.SHAPENET55_VIEWPOINTS
+    clouds = sphere(g, B_VAL, N_SHAPENET, dev).repeat(len(views), 1, 1)
+    view_rows = torch.tensor(views, dtype=torch.float32, device=dev).repeat_interleave(B_VAL, 0)
+    for ratio in port_runner.CROP_RATIO.values():
+        partial, _ = sampling.separate_point_cloud(clouds, int(N_SHAPENET * ratio), fixed_point=view_rows)
+        out.append((partial, N_PARTIAL))
+    partial = torch.randn(B_TRAIN, N_PARTIAL, 3, generator=g)
+    keep = torch.randint(1200, N_PARTIAL + 1, (B_TRAIN, 1), generator=g)
+    partial[torch.arange(N_PARTIAL)[None] >= keep] = 0.0
+    out.append((partial.to(dev), DROP_POINTS))
+    return out
+
+
 def check_fps(calls, extra, g, dev):
     """furthest_point_sample against fps_plain (picks equal; two runs
-    equal) at the request's, the step's and the segmentation models'
-    shapes and probes: N = 14511 (the old limit) and 16384 (the new one), N
-    off threads x points a thread, one point, one pick, more picks than
-    points; identical points (every padded slot and tie must lose to index
-    0) at widths off the block's; a cloud past the limit raises. Timed by
-    :func:`time_fps`."""
+    equal) at the request's, the step's and the segmentation models' shapes,
+    the recipes' (:func:`recipe_fps_inputs`: the ShapeNet-55 train crop's
+    clouds with up to 6144 duplicate rows, its test crops, the KITTI
+    dropping's zero-padded partials) and probes: N = 14511 (the old limit)
+    and 16384 (the new one), N off threads x points a thread, one point, one
+    pick, more picks than points; identical points (every padded slot and
+    tie must lose to index 0) at widths off the block's; a cloud past the
+    limit raises. Timed by :func:`time_fps`."""
     probes = [(2, (14511, 64)), (1, (16384, 32)), (3, (1000, 999)), (2, (2049, 300)), (2, (1, 4)),
               (2, (300, 1)), (2, (50, 80))]
     inputs = [(torch.randn(b, N, 3, generator=g).to(dev), n) for b, (N, n) in batched(calls, extra) + probes]
+    recipes = recipe_fps_inputs(g, dev)
     err = 0.0
-    for xyz, n in inputs:
+    for xyz, n in inputs + recipes:
         got = ops.furthest_point_sample(xyz, n)
         err = max(err, float((got - ops.fps_plain(xyz, n)).abs().max()))
         require(err == 0.0, f"fps {tuple(xyz.shape)}->{n}: picks differ")
         require(torch.equal(ops.furthest_point_sample(xyz, n), got), f"fps {tuple(xyz.shape)}->{n}: two runs differ")
+    log("phase 2: fps at the recipes' shapes, bit-equal to the plain version: "
+        + json.dumps([[*xyz.shape[:2], n] for xyz, n in recipes]))
     for n_pts, picks in ((N_PARTIAL, 512), (1, 16), (33, 16), (1025, 16), (8193, 16)):
         same = torch.full((B, n_pts, 3), 0.25, device=dev)
         require(torch.equal(ops.furthest_point_sample(same, picks),
@@ -733,6 +831,8 @@ def check_fps(calls, extra, g, dev):
         pass
     t = time_fps(calls, g, dev)
     t["plain_ms"] = cuda_ms(lambda: [ops.fps_plain(x, n) for x, n in inputs[:len(calls)]], 2)
+    crop, n = recipes[0]
+    t["more"]["crop_plain_ms"] = cuda_ms(lambda: ops.fps_plain(crop, n), 1)
     # every step folds N distances into the cache and takes their argmax
     n_ops = sum(B * (n - 1) * N * (OPS_PAIR_ONE_WAY + 1) for N, n in calls)
     nbytes = sum(B * (N * 12 + n * 8) for N, n in calls)
@@ -740,12 +840,12 @@ def check_fps(calls, extra, g, dev):
 
 
 def time_fps(calls, g, dev) -> dict:
-    """FPS's times over the request's ``calls`` at ``B`` by graph replay and
-    host loop in turns, on new random clouds, and in the log an estimated
-    latency floor: the dependent steps times :func:`fps_step_cycles` at the
-    card's clock. Only
-    the public op is called, so the same code times an older tree's
-    kernel."""
+    """FPS's times by graph replay and host loop in turns, on new random
+    clouds: the request's ``calls`` at ``B``, and beside them the ShapeNet-55
+    train crop's one call (:func:`crop_cloud`, 64 x 8192 -> 2048, the
+    ``<16, 512>`` route) with its bound (``crop_*``); in the log an
+    estimated latency floor of each: the dependent steps times
+    :func:`fps_step_cycles` at the card's clock."""
     timed = [(torch.randn(B, N, 3, generator=g).to(dev), n) for N, n in calls]
     turns = in_turns(lambda: [ops.furthest_point_sample(x, n) for x, n in timed], None)
     steps = sum(n - 1 for _, n in calls)
@@ -754,6 +854,18 @@ def time_fps(calls, g, dev) -> dict:
     log(f"phase 2: fps, the request's {len(calls)} calls at batch {B} ({steps} dependent steps), in turns: "
         f"graph replay {t['ms']:.4f} ms ({t['ms'] * 1e3 / steps:.4f} us a step), host loop {t['loop_ms']:.4f} ms; "
         f"estimated latency floor {floor:.4f} ms; each pair {json.dumps(turns['pairs'])}")
+    crop = crop_cloud(g, dev)
+    crop_turns = in_turns(lambda: ops.furthest_point_sample(crop, N_PARTIAL), None, reps=(20, 20))
+    op_ms = B_SHAPENET * (N_PARTIAL - 1) * N_SHAPENET * (OPS_PAIR_ONE_WAY + 1) / PEAK_F32 * 1e3
+    byte_ms = B_SHAPENET * (N_SHAPENET * 12 + N_PARTIAL * 8) / PEAK_BYTES * 1e3
+    crop_floor = (N_PARTIAL - 1) * fps_step_cycles(N_SHAPENET) / sm_clock_hz() * 1e3
+    t["more"] = {"crop_ms": crop_turns["graph"][0], "crop_loop_ms": crop_turns["loop"][0],
+                 "crop_bound_ms": max(op_ms, byte_ms), "crop_bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                 "crop_shape": [B_SHAPENET, N_SHAPENET, N_PARTIAL]}
+    log(f"phase 2: fps, the ShapeNet-55 crop's call {B_SHAPENET} x {N_SHAPENET} -> {N_PARTIAL}, in turns: graph "
+        f"replay {crop_turns['graph'][0]:.4f} ms ({crop_turns['graph'][0] * 1e3 / (N_PARTIAL - 1):.4f} us a step), "
+        f"host loop {crop_turns['loop'][0]:.4f} ms; bound {max(op_ms, byte_ms):.4f} ms; estimated latency floor "
+        f"{crop_floor:.4f} ms; each pair {json.dumps(crop_turns['pairs'])}")
     return t
 
 
@@ -1236,8 +1348,6 @@ def check_top2(calls, extra, g, dev):
     meet in the merge. Timed with every row live (the first iteration's
     work) and at the smallest live width. Library: ``cdist`` squared, minus
     the price, ``topk(2)`` (the matmul form)."""
-    from imgadapointr_tpu_torch.ops import emd as port_emd
-
     (N, M), = calls
     x, y = sphere(g, 1, N, dev), sphere(g, 1, M, dev)
     prices = (torch.zeros(1, M, device=dev), (torch.rand(1, M, generator=g) * 1e-3).to(dev))
@@ -1829,7 +1939,7 @@ def run_train_steps(runner, batches, calls, what: str, phase: str):
             f"{m['dense_loss']:.5f} grad norm {m['grad_norm']:.4f} lr {m['lr']:.3e}")
     counts = check_launches(what, calls, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
-    log(f"{phase}: median step {statistics.median(times) * 1e3:.1f} ms at batch {B_TRAIN}; "
+    log(f"{phase}: median step {statistics.median(times) * 1e3:.1f} ms at batch {len(batches[0]['gt'])}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB; launches per step "
         f"{json.dumps({k: v // TRAIN_STEPS for k, v in counts.items()})}")
     return counts, times, peak
@@ -2052,8 +2162,6 @@ def emd_check(runner, batch, dev) -> dict:
     top-2 launches, and the assignment through the kernel against the same
     loop through the plain top-2 on the card; then one profiled run, with
     the top-2's device time in it."""
-    from imgadapointr_tpu_torch.ops import emd as port_emd
-
     with torch.inference_mode():
         _, dense = runner.model.eval()(*model_args(runner.model, {k: v.numpy() for k, v in batch.items()}, dev))
     gt = batch["gt"].to(dev)
@@ -2375,6 +2483,403 @@ def deform_phase(seed: int, dev, card: str, workdir: str):
     return counts, summary
 
 
+# ------------------------------------------------------------ phase 8 path
+
+
+PCN_TAXONOMIES = {"02958343": 112, "02691156": 16}  # car (the KITTI finetune's), airplane: train models
+SHAPENET_TAXONOMIES = ("02691156", "02958343", "03001627", "04379243")
+
+
+def root_paths(split_cfg, root: str) -> None:
+    """Point a dataset split's ``data/...`` paths into ``root``, keeping the
+    layout the config names."""
+    for key in ("CATEGORY_FILE_PATH", "PARTIAL_POINTS_PATH", "COMPLETE_POINTS_PATH", "DATA_PATH", "PC_PATH"):
+        if str(split_cfg.get(key, "")).startswith("data/"):
+            split_cfg[key] = os.path.join(root, split_cfg[key][len("data/"):])
+
+
+def write_pcn_tree(pcn_cfg, seed: int) -> dict:
+    """A PCN tree in the layout of ``cfgs/dataset_configs/PCN.yaml`` (the
+    config's own path patterns), written with the port's ``IO.put`` as
+    binary ``.pcd``: ``PCN_TAXONOMIES`` train models with 8 renders, one
+    val and one test model a taxonomy; complete clouds of 16384 points
+    (smooth closed surfaces), partials of 1400-2700 points (one side of
+    the surface, jittered). Returns the category file's entries."""
+    rng = np.random.default_rng(seed)
+    cats = [{"taxonomy_id": t, "taxonomy_name": t, "train": [f"{t}_m{i:03d}" for i in range(n)],
+             "val": [f"{t}_v0"], "test": [f"{t}_t0"]} for t, n in PCN_TAXONOMIES.items()]
+    os.makedirs(os.path.dirname(pcn_cfg.CATEGORY_FILE_PATH), exist_ok=True)
+    with open(pcn_cfg.CATEGORY_FILE_PATH, "w") as f:
+        json.dump(cats, f)
+    n_points = int(pcn_cfg.N_POINTS)
+    for dc in cats:
+        for subset in ("train", "val", "test"):
+            for m in dc[subset]:
+                gt = _surface_points(rng, n_points)
+                normal = rng.standard_normal(3)
+                side = gt[gt @ normal > np.median(gt @ normal)]
+                for r in range(int(pcn_cfg.N_RENDERINGS) if subset == "train" else 1):
+                    pts = side[rng.integers(0, len(side), int(rng.integers(1400, 2700)))]
+                    pts = pts + rng.normal(0, 0.005, pts.shape).astype(np.float32)
+                    path = pcn_cfg.PARTIAL_POINTS_PATH % (subset, dc["taxonomy_id"], m, r)
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    IO.put(path, pts)
+                path = pcn_cfg.COMPLETE_POINTS_PATH % (subset, dc["taxonomy_id"], m)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                IO.put(path, gt)
+    return cats
+
+
+def write_shapenet_tree(sn_cfg, n_train: int, n_test: int, seed: int) -> None:
+    """A ShapeNet-55 tree in the layout of ``cfgs/dataset_configs/ShapeNet55.yaml``:
+    ``train.txt`` / ``test.txt`` naming ``<taxonomy>-<model>.npy`` clouds of
+    ``N_POINTS`` (8192) surface points, written with ``IO.put``."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(sn_cfg.DATA_PATH, exist_ok=True)
+    os.makedirs(sn_cfg.PC_PATH, exist_ok=True)
+    for subset, n in (("train", n_train), ("test", n_test)):
+        lines = [f"{SHAPENET_TAXONOMIES[i % len(SHAPENET_TAXONOMIES)]}-{subset}{i:04d}.npy" for i in range(n)]
+        for line in lines:
+            IO.put(os.path.join(sn_cfg.PC_PATH, line), _surface_points(rng, int(sn_cfg.N_POINTS)))
+        with open(os.path.join(sn_cfg.DATA_PATH, f"{subset}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def merged(*tables) -> dict:
+    """The kernel call tables of several parts of one run, concatenated."""
+    out: dict = {}
+    for table in tables:
+        for k, v in table.items():
+            out[k] = None if v is None or out.get(k, []) is None else out.get(k, []) + list(v)
+    return out
+
+
+def crop_calls(n: int) -> dict:
+    """The ShapeNet-55 train crop's calls a step: the sort's gather, FPS to
+    2048 and its gather."""
+    return {"fps": [(n, N_PARTIAL)], "gather_rows": [(n, 3, n), (n, 3, N_PARTIAL)]}
+
+
+def dropping_calls(n: int) -> dict:
+    """The KITTI dropping's calls a step: FPS to ``min(n, 768)`` and its gather."""
+    s = min(n, DROP_POINTS)
+    return {"fps": [(n, s)], "gather_rows": [(n, 3, s)]}
+
+
+def shapenet_test_calls(cfg, n: int, num_crop: int) -> dict:
+    """One ShapeNet-55 test batch's calls: every crop's sort gather, FPS to
+    2048 and its gather, then one eval request with the coarse cloud's
+    chamfer over all crops (the F-Score from the same pass)."""
+    return merged(eval_calls(cfg, "validate"),
+                  {"fps": [(n - num_crop, N_PARTIAL)], "gather_rows": [(n, 3, n), (n - num_crop, 3, N_PARTIAL)]})
+
+
+def recipe_args(seed: int, workdir: str, **kw):
+    return types.SimpleNamespace(device="cuda", seed=seed, num_workers=0, emd=True, experiment_path=workdir, **kw)
+
+
+def loader_ms(loader, n: int = 3) -> float:
+    """Host milliseconds a batch of ``loader`` (0 workers: the reader, its
+    transforms and the collate in this process), over ``n`` batches."""
+    t0 = time.perf_counter()
+    for _ in itertools.islice(loader, n):
+        pass
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def check_loader(dataset, dataset_cfg, seed: int) -> dict:
+    """A smoke run of the loader's 2 worker processes on this machine's
+    torch: its first two batches of epoch 1 against the same reader's
+    samples made in this process with the JAX loader's order and seeds,
+    equal bit for bit; then ``close`` stops the workers.
+    (``tests/test_torch_data.py`` holds the loader to the JAX loader over
+    two epochs and checks that the workers exit.)"""
+    _, loader = dataset_builder(types.SimpleNamespace(seed=seed, num_workers=2), dataset_cfg)
+    loader.set_epoch(1)
+    order, base, bs = loader.sampler.order(), base_seed(seed, 1), loader.batch_size
+    try:
+        for b, (taxonomy_ids, model_ids, batch) in enumerate(itertools.islice(loader, 2)):
+            samples = [dataset.get(int(i), np.random.default_rng((base, int(i)))) for i in order[b * bs:(b + 1) * bs]]
+            require(taxonomy_ids == [s[0] for s in samples] and model_ids == [s[1] for s in samples],
+                    "the loader's order differs from the reader's")
+            for k, v in batch.items():
+                require(torch.equal(v, torch.from_numpy(np.stack([s[2][k] for s in samples]))),
+                        f"the 2-worker loader's {k} differs from the reader's in this process")
+    finally:
+        loader.close()
+    return {"batches": 2, "batch": bs, "workers": 2, "equal": True}
+
+
+def timed_augment(runner, batch, epoch_f: float) -> float:
+    """Seconds of one train augmentation of a batch on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.augment(batch, epoch_f)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def recipe_steps(runner, loader, calls, what: str) -> tuple:
+    """1 warm-up and ``TRAIN_STEPS`` steps of ``runner`` on the loader's
+    first batches (epoch 0) with the launch table ``calls``, the host time a
+    batch of the loader, and one profiled step; returns (launch counts,
+    summary, the batches)."""
+    loader.set_epoch(0)
+    ms_batch = loader_ms(loader)
+    batches = [b for _, _, b in itertools.islice(loader, TRAIN_STEPS + 2)]
+    require(len(batches) == TRAIN_STEPS + 2, f"{what}: {len(batches)} batches")
+    before = {n: p.detach().clone() for n, p in runner.model.named_parameters()}
+    counts, times, peak = run_train_steps(runner, batches, calls, what, "phase 8")
+    check_trained(runner.model, before)
+    prof = profile_run(lambda: timed_step(runner, batches[1 + TRAIN_STEPS], 0.9)[0])
+    log(f"phase 8: one profiled step of {what}: " + json.dumps(prof))
+    summary = {"batch": len(batches[0]["gt"]), "step_ms": [t * 1e3 for t in times],
+               "median_step_ms": statistics.median(times) * 1e3, "max_memory_allocated_gib": peak / 2**30,
+               "loader_ms_per_batch": ms_batch,
+               "profiled_step": {k: v for k, v in prof.items() if k != "top"}}
+    return counts, summary, batches
+
+
+def pcn_recipe(seed: int, dev, root: str, workdir: str):
+    """The PCN recipe (``cfgs/PCN_models/AdaPoinTr.yaml``) from its tree:
+    the 2-worker loader against the reader in this process, 1 +
+    ``TRAIN_STEPS`` steps at batch 16 with the flagship's launch table and
+    a profiled step, one checkpoint save timed, then ``validate`` and
+    ``test`` (EMD) on 2 clouds at batch 1 and at ``--val_bs 2``, with their
+    tables and every metric but EMD equal across the two to 1e-5, and
+    :func:`emd_batch_check` on the test clouds."""
+    config = cfg_from_yaml_file(CONFIG)
+    for split in ("train", "val", "test"):
+        root_paths(config.dataset[split], root)
+    write_pcn_tree(config.dataset.train, seed)
+    config.dataset.train.others.bs = B_TRAIN
+    args = recipe_args(seed, workdir)
+    dataset, train_loader = dataset_builder(args, config.dataset.train)
+    loader = check_loader(dataset, config.dataset.train, seed)
+    log(f"phase 8: PCN: the 2-worker loader's batches equal the reader's in this process: {json.dumps(loader)}")
+    runner = port_runner.Runner(args, config, logger="silent")
+    runner.make_train_state(len(train_loader))
+    require(runner.train_aug == "none", f"PCN: train_aug {runner.train_aug}")
+    cfg = config.model
+    counts, summary, _ = recipe_steps(runner, train_loader, train_step_calls(cfg), "the PCN recipe's steps")
+    counts = {"pcn_train": counts}
+    summary["checkpoint_save_ms"] = checkpoint_save_ms(runner)
+    log(f"phase 8: one checkpoint save of the flagship (weights and AdamW state): "
+        f"{json.dumps(summary['checkpoint_save_ms'])} ms")
+    evals = {}
+    for bs in (1, B_VAL):
+        for split in ("val", "test"):
+            config.dataset[split].others.bs = bs
+        _, val_loader = dataset_builder(args, config.dataset.val)
+        _, test_loader = dataset_builder(args, config.dataset.test)
+        _build.reset_launches()
+        metrics = port_runner.validate(runner, val_loader, 0, "silent")
+        counts[f"pcn_validate_bs{bs}"] = check_launches(f"validate at batch {bs}", eval_calls(cfg, "validate"),
+                                                        EVAL_CLOUDS // bs)
+        _build.reset_launches()
+        scores = port_runner.test(runner, test_loader, args, config, "silent")
+        counts[f"pcn_test_bs{bs}"] = check_launches(f"test at batch {bs}", eval_calls(cfg, "test"), EVAL_CLOUDS // bs)
+        require(all(np.isfinite(v) for v in metrics.state_dict().values()), f"PCN validate: {metrics}")
+        require(all(np.isfinite(v) for v in scores.values()) and scores["EMDistance"] > 0, f"PCN test: {scores}")
+        evals[f"batch {bs}"] = {"validate": metrics.state_dict(), "test": {k: float(v) for k, v in scores.items()}}
+    for split in ("validate", "test"):  # the test's EMD: emd_batch_check
+        for k in ("F-Score", "CDL1", "CDL2"):
+            a, b = evals["batch 1"][split][k], evals[f"batch {B_VAL}"][split][k]
+            require(abs(a - b) <= 1e-5 * max(abs(a), 1e-6), f"PCN {split} {k}: batch 1 {a}, batch {B_VAL} {b}")
+    log(f"phase 8: PCN validate and test on {EVAL_CLOUDS} clouds at batch 1 and {B_VAL}: " + json.dumps(evals))
+    summary["eval"] = evals
+    summary["emd_batch"] = emd_batch_check(runner, test_loader)
+    del runner
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def checkpoint_save_ms(runner, n: int = 3) -> list:
+    """Host milliseconds of ``n`` saves of the runner's checkpoint (the
+    weights and the optimizer's state, written with ``torch.save`` into the
+    experiment directory): the cost that ``--save_freq`` skips."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.save("ckpt-last", 0, None, None)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def emd_batch_check(runner, test_loader) -> dict:
+    """The test's EMD across batch sizes, with the forward taken apart from
+    the auction: the first test batch (``B_VAL`` clouds) completed once,
+    then the auction (``EMD_EPS``, ``EMD_ITERATIONS``) on those same dense
+    clouds at batch ``B_VAL`` and one cloud at a time must give equal
+    assignments and EMD rows within 1e-6 relative (the per-cloud mean's
+    rounding); each cloud's own batch-1 forward, and the EMD of its dense
+    cloud, are reported beside them."""
+    batch = runner._to_device(next(iter(test_loader))[2])
+    gt = batch["gt"]
+    with torch.inference_mode():
+        dense = runner._eval_core(batch)[1][1]
+        assign = port_emd.emd_auction(dense, gt, EMD_EPS, EMD_ITERATIONS)[1]
+        rows = compute_metrics_per_sample(dense, gt, require_emd=True, ignore_zeros=True)[:, 3]
+        single_assign, single_rows, own_rows, own_dense = [], [], [], []
+        for b in range(len(dense)):
+            one = {k: v[b:b + 1] for k, v in batch.items()}
+            single_assign.append(port_emd.emd_auction(dense[b:b + 1], gt[b:b + 1], EMD_EPS, EMD_ITERATIONS)[1])
+            single_rows.append(compute_metrics_per_sample(dense[b:b + 1], gt[b:b + 1], require_emd=True,
+                                                          ignore_zeros=True)[0, 3])
+            own = runner._eval_core(one)[1][1]
+            own_dense.append(own)
+            own_rows.append(compute_metrics_per_sample(own, gt[b:b + 1], require_emd=True, ignore_zeros=True)[0, 3])
+    single_rows, own_rows = torch.stack(single_rows), torch.stack(own_rows)
+    own_dense = torch.cat(own_dense)
+    out = {"clouds": len(dense), "assignments_equal": bool(torch.equal(assign, torch.cat(single_assign))),
+           "emd_batch": rows.tolist(), "emd_one_at_a_time": single_rows.tolist(),
+           "emd_rel_diff": float(((rows - single_rows).abs() / single_rows.abs()).max()),
+           "own_forward_emd": own_rows.tolist(),
+           "own_forward_emd_rel_diff": float(((rows - own_rows).abs() / own_rows.abs()).max()),
+           "own_forward_dense_max_abs_diff": float((dense - own_dense).abs().max()),
+           "own_forward_assignments_differ": int((assign != port_emd.emd_auction(
+               own_dense, gt, EMD_EPS, EMD_ITERATIONS)[1]).sum())}
+    log(f"phase 8: PCN test EMD on the same dense clouds at batch {len(dense)} and one at a time, and after each "
+        f"cloud's own batch-1 forward: " + json.dumps(out))
+    require(out["assignments_equal"], "the auction's assignment depends on the batch")
+    require(out["emd_rel_diff"] <= 1e-6, f"the EMD rows depend on the batch: {out['emd_rel_diff']}")
+    return out
+
+
+def shapenet_recipe(seed: int, dev, root: str, workdir: str):
+    """The ShapeNet-55 recipe (``cfgs/ShapeNet55_models/AdaPoinTr.yaml``)
+    from its tree: 1 + ``TRAIN_STEPS`` steps at total_bs 64 with the crop
+    (the flagship's table at 8192 points plus the crop's FPS and gathers), a
+    profiled step and the crop's in-path FPS time; the 8-viewpoint test on
+    2 clouds at ``--val_bs 2`` in each mode; one crop, its FPS and the
+    forward at batch 2 against the CPU through the plain versions."""
+    config = cfg_from_yaml_file(SHAPENET)
+    require(int(config.total_bs) == B_SHAPENET, f"ShapeNet-55 total_bs {config.total_bs}")
+    for split in ("train", "val", "test"):
+        root_paths(config.dataset[split], root)
+    write_shapenet_tree(config.dataset.train, B_SHAPENET * (TRAIN_STEPS + 2), EVAL_CLOUDS, seed + 1)
+    config.dataset.train.others.bs = B_SHAPENET
+    config.dataset.test.others.bs = B_VAL
+    args = recipe_args(seed, workdir)
+    _, train_loader = dataset_builder(args, config.dataset.train)
+    _, test_loader = dataset_builder(args, config.dataset.test)
+    runner = port_runner.Runner(args, config, logger="silent")
+    runner.make_train_state(len(train_loader))
+    require((runner.train_aug, runner.train_npoints) == ("crop", N_SHAPENET),
+            f"ShapeNet-55: train_aug {runner.train_aug} at {runner.train_npoints}")
+    cfg = config.model
+    calls = merged(train_step_calls(cfg), crop_calls(N_SHAPENET))
+    counts, summary, batches = recipe_steps(runner, train_loader, calls, "the ShapeNet-55 recipe's steps")
+    counts = {"shapenet_train": counts}
+    batch = runner._to_device(batches[-1])
+    timed_augment(runner, batch, 0.5)
+    crop_prof = profile_run(lambda: timed_augment(runner, batch, 0.5))
+    summary["crop"] = {"wall_ms": crop_prof.get("wall_ms"), "device_busy_ms": crop_prof.get("device_busy_ms"),
+                       "fps_in_path_ms": crop_prof.get("ported_kernels_ms", {}).get("fps_kernel"),
+                       "gather_in_path_ms": crop_prof.get("ported_kernels_ms", {}).get("gather_rows"),
+                       "launches": crop_prof.get("launches")}
+    log(f"phase 8: the ShapeNet-55 crop of one batch of {B_SHAPENET}, profiled: " + json.dumps(crop_prof))
+
+    tests = {}
+    for mode, ratio in port_runner.CROP_RATIO.items():
+        num_crop = int(N_SHAPENET * ratio)
+        _build.reset_launches()
+        scores = port_runner.test(runner, test_loader, recipe_args(seed, workdir, mode=mode), config, "silent")
+        counts[f"shapenet_test_{mode}"] = check_launches(f"the ShapeNet-55 test ({mode})",
+                                                         shapenet_test_calls(cfg, N_SHAPENET, num_crop),
+                                                         EVAL_CLOUDS // B_VAL)
+        require(all(np.isfinite(v) for v in scores.values()) and scores["CDL1"] > 0, f"ShapeNet-55 {mode}: {scores}")
+        tests[mode] = {k: float(v) for k, v in scores.items()}
+    log(f"phase 8: the ShapeNet-55 8-viewpoint test on {EVAL_CLOUDS} clouds at batch {B_VAL}: " + json.dumps(tests))
+    summary["test"] = tests
+    summary["card_vs_cpu"] = shapenet_card_vs_cpu(runner, next(iter(test_loader))[2]["gt"], seed, dev)
+    del runner
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def shapenet_card_vs_cpu(runner, gts, seed: int, dev) -> dict:
+    """One train crop of 2 clouds (draws from a CPU generator: one cropped
+    by the least and one by the most) on the card and on the CPU (the plain
+    versions): the unit centres, the sorted orders, the kept clouds and the
+    FPS picks equal; then the forward of the crops with the runner's
+    weights on both, its last ranking layer scaled by 1000 as phase 5 does:
+    clouds as sets and CD-L1 within phase 3's band."""
+    g = torch.Generator().manual_seed(seed + 3)
+    center = torch.randn(2, 1, 3, generator=g)
+    num_crop = torch.tensor([[N_SHAPENET // 4], [3 * N_SHAPENET // 4]])
+    out = []
+    for where in (dev, torch.device("cpu")):
+        gt = gts.to(where)
+        unit = sampling._unit_center(center.to(where))
+        order = sampling.view_order(gt, unit)
+        kept = sampling.train_crop_kept(gt, unit, num_crop.to(where))
+        picks = ops.furthest_point_sample(kept, N_PARTIAL)
+        out.append([t.cpu() for t in (unit, order, kept, picks, ops.index_points(kept, picks))])
+    for name, a, b in zip(("centres", "orders", "kept clouds", "FPS picks", "crops"), *out):
+        require(torch.equal(a, b), f"the ShapeNet-55 crop, card against CPU: the {name} differ")
+    model = runner.model.eval()
+    cpu_model = build_model(runner.config.model, device="cpu", seed=seed)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    for m in (model, cpu_model):
+        with torch.no_grad():
+            m.base_model.query_ranking[4].weight.mul_(1000.0)
+    agree = cpu_agreement(model, cpu_model, {"partial": out[1][4].numpy(), "gt": gts.numpy()}, dev)
+    log("phase 8: the ShapeNet-55 crop and forward at batch 2, card against CPU: crops equal; "
+        + json.dumps(agree))
+    require(min(agree["coarse_matched"], agree["fine_matched"]) >= 0.99,
+            "ShapeNet-55: the card's clouds disagree with the CPU's")
+    require(abs(agree["cd_l1_card"] - agree["cd_l1_cpu"]) <= 1e-2 * agree["cd_l1_cpu"],
+            "ShapeNet-55: the card's CD-L1 disagrees with the CPU's")
+    return {"crop_equal": True, **agree}
+
+
+def kitti_recipe(seed: int, root: str, workdir: str):
+    """The KITTI finetune (``cfgs/KITTI_models/AdaPoinTr.yaml``): PCN cars
+    (``CARS``) from the PCN tree, 1 + ``TRAIN_STEPS`` steps at batch 16 with
+    the dropping (the flagship's table plus the dropping's FPS and gather)
+    and a profiled step. Its test protocol draws images with matplotlib,
+    which the card's machine lacks: it is not driven here."""
+    config = cfg_from_yaml_file(KITTI)
+    root_paths(config.dataset.train, root)
+    config.dataset.train.others.bs = B_TRAIN
+    args = recipe_args(seed, workdir)
+    _, train_loader = dataset_builder(args, config.dataset.train)
+    require(len(train_loader) == PCN_TAXONOMIES["02958343"] // B_TRAIN, "KITTI: the CARS filter")
+    runner = port_runner.Runner(args, config, logger="silent")
+    runner.make_train_state(len(train_loader))
+    require(runner.train_aug == "dropping", f"KITTI: train_aug {runner.train_aug}")
+    calls = merged(train_step_calls(config.model), dropping_calls(N_PARTIAL))
+    counts, summary, _ = recipe_steps(runner, train_loader, calls, "the KITTI finetune's steps")
+    del runner
+    torch.cuda.empty_cache()
+    return {"kitti_train": counts}, summary
+
+
+def recipes_phase(seed: int, dev, card: str):
+    """Phase 8: the three recipes from trees written into a temporary
+    directory (removed at the end); returns the launch counts and the
+    summaries."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        counts, pcn = pcn_recipe(seed, dev, root, workdir)
+        log(f"phase 8: PCN recipe on {card}: " + json.dumps(pcn))
+        more, shapenet = shapenet_recipe(seed, dev, root, workdir)
+        counts.update(more)
+        log(f"phase 8: ShapeNet-55 recipe on {card}: " + json.dumps(shapenet))
+        more, kitti = kitti_recipe(seed, root, workdir)
+        counts.update(more)
+        log(f"phase 8: KITTI finetune on {card}: " + json.dumps(kitti))
+        log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(workdir, ignore_errors=True)
+    return counts, {"pcn": pcn, "shapenet55": shapenet, "kitti": kitti}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2449,6 +2954,26 @@ def main(argv=None) -> int:
     extra.update(three_nn_interpolate=[(B_TRAIN, c) for c in d_train["three_nn_interpolate"]],
                  nn_bidir_mxu=[(2, (4097, n_fine - 1))],
                  weighted_gather_sum_dfeats=[(B_TRAIN, c) for c in bwd] + bwd_extra)
+    # the recipes' new shapes (phase 8): the ShapeNet-55 train crop's sort
+    # and FPS gathers at B_SHAPENET and its chamfer at 8192 x 8192; the test
+    # crops' gathers at 8 viewpoints x B_VAL; the KITTI dropping's gather
+    # (FPS: recipe_fps_inputs, inside check_fps)
+    n_test = len(port_runner.SHAPENET55_VIEWPOINTS) * B_VAL
+    extra["gather_rows"] += [(B_SHAPENET, c) for c in crop_calls(N_SHAPENET)["gather_rows"]]
+    extra["gather_rows"] += [(n_test, c) for r in port_runner.CROP_RATIO.values()
+                             for c in shapenet_test_calls(cfg, N_SHAPENET, int(N_SHAPENET * r))["gather_rows"][-2:]]
+    extra["gather_rows"] += [(B_TRAIN, c) for c in dropping_calls(N_PARTIAL)["gather_rows"]]
+    extra["nn_bidir_argmin"] += [(B_SHAPENET, (N_SHAPENET, N_SHAPENET))]
+    # the recipes' model calls: the ShapeNet-55 train step at B_SHAPENET
+    # (its denoise kNN of 64 queries against 8192 points, its chamfers at
+    # 8192, every scatter of its backward), its test batch's eval calls at
+    # 8 viewpoints x B_VAL, and the PCN validate and test at batch 1 and
+    # B_VAL (kNN's chunk count depends on the batch)
+    sn_cfg = cfg_from_yaml_file(SHAPENET).model
+    recipe_tables = [(B_SHAPENET, train_step_calls(sn_cfg)), (n_test, eval_calls(sn_cfg, "validate"))]
+    recipe_tables += [(b, eval_calls(cfg, "test")) for b in (1, B_VAL)]
+    for name in ("knn", "fps", "gather_rows", "nn_bidir_argmin", "scatter_add_rows"):
+        extra[name] += [(b, c) for b, table in recipe_tables for c in table.get(name) or []]
     g = torch.Generator().manual_seed(args.seed)
     checks = {"knn": check_knn, "fps": check_fps, "gather_rows": check_gather,
               "nn_bidir_argmin": check_bidir, "scatter_add_rows": check_scatter,
@@ -2528,6 +3053,10 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     counts.update(deform_counts)
 
+    # ---- phase 8: the PCN, ShapeNet-55 and KITTI recipes from trees on disk
+    recipe_counts, recipes_summary = recipes_phase(args.seed, dev, card)
+    counts.update(recipe_counts)
+
     kernels = []
     for name in _build.KERNELS:
         err, t, n_ops, nbytes = results[name]
@@ -2549,6 +3078,11 @@ def main(argv=None) -> int:
             "launches_validate": counts["validate"][name], "launches_test": counts["test"][name],
             "launches_validate_mxu": counts["validate_mxu"][name],
             "launches_test_mxu": counts["test_mxu"][name],
+            "launches_per_pcn_train_step": counts["pcn_train"][name] // TRAIN_STEPS,
+            "launches_per_shapenet55_train_step": counts["shapenet_train"][name] // TRAIN_STEPS,
+            "launches_per_kitti_train_step": counts["kitti_train"][name] // TRAIN_STEPS,
+            "launches_shapenet55_test_batch": {m: counts[f"shapenet_test_{m}"][name] // (EVAL_CLOUDS // B_VAL)
+                                               for m in port_runner.CROP_RATIO},
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
@@ -2567,7 +3101,8 @@ def main(argv=None) -> int:
                                       "total_loss_rel_diff", "grad_norm_rel_diff")},
                                   "superset_serving": superset_summary,
                                   "superset_training": superset_train_summary,
-                                  "deform": deform_summary | {"grouped_deform_gather": grouped_gather}}))
+                                  "deform": deform_summary | {"grouped_deform_gather": grouped_gather},
+                                  "recipes": recipes_summary}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

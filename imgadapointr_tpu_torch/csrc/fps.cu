@@ -38,10 +38,12 @@
 //   reduction, no second barrier, no lookup of the cloud.
 // A padded point (past N) has coordinates 0 and minimum 0 for good, and an
 // unused slot keeps key 0: each can only tie a valid point's key, and the
-// valid point comes first. Past 8192 points (on no path of the model) the
-// block has up to 1024 threads of 16 points, 64 registers each, and the
-// compiler spills some of them to local memory: there a step is slower
-// than with the cloud in shared memory.
+// valid point comes first. 8192 points (the ShapeNet-55 train crop's FPS,
+// 64 clouds a step, up to 6144 of a cloud's points copies of one point)
+// take 512 threads x 16. Past 8192 points (the KITTI test's 16384-point
+// inputs; no card run drives them) the block has up to 1024 threads of 16
+// points, 64 registers each, and the compiler spills some of them to local
+// memory: there a step is slower than with the cloud in shared memory.
 //
 // Distances use __fsub_rn/__fmul_rn/__fadd_rn: no FMA contraction changes
 // the rounding against the plain PyTorch version.

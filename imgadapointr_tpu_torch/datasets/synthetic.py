@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.registry import DATASETS
+
 _TAXONOMIES = [
     "02691156", "02933112", "02958343", "03001627",
     "03636649", "04256520", "04379243", "04530566",
@@ -32,6 +34,7 @@ def _surface_points(rng: np.random.Generator, n: int) -> np.ndarray:
     return pts.astype(np.float32)
 
 
+@DATASETS.register_module(name="SyntheticPCN")
 class SyntheticPCN:
     """PCN-shaped synthetic data. Config keys: N_POINTS (gt size),
     N_PARTIAL (default 2048), LENGTH, WITH_IMG (a 224x224x3 image in [0, 1)),
@@ -48,11 +51,6 @@ class SyntheticPCN:
 
     def __len__(self):
         return self.length
-
-    def __getitem__(self, idx: int):
-        """``(taxonomy_id, model_id, {'partial', 'gt'})``: a map-style
-        dataset for ``torch.utils.data.DataLoader``."""
-        return self.get(idx, None)
 
     def get(self, idx: int, rng: np.random.Generator):
         # deterministic per (seed, idx): the sample ignores the pipeline rng

@@ -1,15 +1,17 @@
 """Entry point: train or test a model from a YAML config.
 
     python -m imgadapointr_tpu_torch.main --config cfgs/PCN_models/AdaPoinTr.yaml \\
-        --exp_name run0 --synthetic                    # train, validate, checkpoint
-    python -m imgadapointr_tpu_torch.main --config ... --exp_name run0 --synthetic --resume
-    python -m imgadapointr_tpu_torch.main --config ... --synthetic --test \\
-        --ckpts experiments/AdaPoinTr/PCN_models/run0/ckpt-best.pth
+        --exp_name run0                                # train, validate, checkpoint
+    python -m imgadapointr_tpu_torch.main --config ... --exp_name run0 --resume
+    python -m imgadapointr_tpu_torch.main --config ... --test \\
+        --ckpts experiments/AdaPoinTr/PCN_models/run0/ckpt-best.pth [--val_bs 8]
+    python -m imgadapointr_tpu_torch.main --config cfgs/ShapeNet55_models/AdaPoinTr.yaml \\
+        --test --ckpts ... --mode hard                 # the 8-viewpoint crop protocol
 
 Counterpart of the JAX package's ``main.py``. Runs on the GPU unless
-``--device cpu`` is given. ``--synthetic`` swaps every dataset split for
-``SyntheticPCN``; it is the only data source so far (the PCN and ShapeNet
-readers wait for dataset files).
+``--device cpu`` is given. The configs' dataset blocks name the readers
+and their trees (``cfgs/dataset_configs/``, paths relative to the working
+directory); ``--synthetic`` swaps every split for ``SyntheticPCN``.
 """
 
 from __future__ import annotations
@@ -56,9 +58,13 @@ def main(argv=None):
     if args.synthetic:
         swap_synthetic(config, train_len=args.syn_train_len)
     config.dataset.train.others.bs = config.total_bs
-    for split in ("val", "test"):  # the reference protocol evaluates at batch size 1
+    # the reference protocol evaluates at batch size 1; --val_bs batches
+    # validation and the PCN and ShapeNet-55 tests with per-sample rows.
+    # KITTI's test draws one image a cloud and stays at 1
+    for split in ("val", "test"):
         if split in config.dataset:
-            config.dataset[split].others.bs = 1
+            kitti = split == "test" and config.dataset.test.get("NAME", "") == "KITTI"
+            config.dataset[split].others.bs = 1 if kitti else max(1, args.val_bs)
 
     torch.manual_seed(args.seed)
     print_log(f"config: {config}", logger)

@@ -46,7 +46,14 @@ from .pointops import (
     three_nn_interpolate_plain,
     three_weights,
 )
-from .sampling import jitter_points
+from .sampling import (
+    jitter_points,
+    random_dropping,
+    random_sample,
+    random_scale,
+    separate_point_cloud,
+    train_random_crop,
+)
 
 __all__ = [
     "chamfer_l1", "chamfer_l1_pm", "chamfer_l2", "chamfer_l2_split",
@@ -61,5 +68,6 @@ __all__ = [
     "auction_top2_plain", "emd_auction", "emd_distance_metric", "mxu_eval_chamfer_active",
     "nn_argmin_bidir_mxu", "nn_argmin_bidir_mxu_plain", "three_interpolate", "three_nn",
     "three_nn_interpolate", "three_nn_interpolate_grouped", "three_nn_interpolate_grouped_plain",
-    "three_nn_interpolate_plain", "three_weights",
+    "three_nn_interpolate_plain", "three_weights", "random_dropping", "random_sample", "random_scale",
+    "separate_point_cloud", "train_random_crop",
 ]

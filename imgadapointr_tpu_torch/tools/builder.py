@@ -14,9 +14,8 @@ accumulation (``step_per_update > 1``) wait for the models that use them.
 from __future__ import annotations
 
 import torch
-from torch.utils.data import DataLoader
 
-from ..datasets import SyntheticPCN
+from ..datasets import DATASETS, Loader
 from ..utils.schedulers import build_bnm_schedule, build_lr_schedule
 
 # Parameter subtrees that get no gradient by construction: the query-ranking
@@ -27,24 +26,15 @@ ZERO_GRAD_PARAM_MARKERS = ("query_ranking", "linear_offset", "proj_v_off")
 
 
 def dataset_builder(args, dataset_cfg):
-    """(dataset, loader) for one split. The train split is shuffled by a
-    seeded generator and drops its ragged last batch; batch size is
-    ``others.bs``."""
-    name = dataset_cfg.get("NAME")
-    if name != "SyntheticPCN":
-        raise NotImplementedError(
-            f"dataset {name!r}: only SyntheticPCN (--synthetic) is ported; the PCN and "
-            "ShapeNet readers are not ported yet (ROADMAP Queue 1 item 1: dataset readers)"
-        )
-    dataset = SyntheticPCN(dataset_cfg)
+    """(dataset, loader) for one split: the reader ``DATASETS`` registers
+    under the config's ``NAME`` and a :class:`Loader` over it in the JAX
+    loader's order (``--seed``). The train split is shuffled and drops its
+    ragged last batch; the batch size is ``others.bs``."""
+    dataset = DATASETS.build(dataset_cfg)
     is_train = dataset_cfg.others.subset == "train"
-    workers = int(getattr(args, "num_workers", 0))
-    loader = DataLoader(
-        dataset, batch_size=int(dataset_cfg.others.get("bs", 1)),
-        shuffle=is_train, drop_last=is_train, num_workers=workers,
-        generator=torch.Generator().manual_seed(int(getattr(args, "seed", 0))),
-        persistent_workers=workers > 0,
-    )
+    loader = Loader(dataset, batch_size=int(dataset_cfg.others.get("bs", 1)), shuffle=is_train,
+                    drop_last=is_train, seed=int(getattr(args, "seed", 0)),
+                    num_workers=int(getattr(args, "num_workers", 0)))
     return dataset, loader
 
 

@@ -1,16 +1,20 @@
-"""Training / validation / test harness of the PCN protocol.
+"""Training / validation / test harness.
 
 Counterpart of ``imgadapointr_tpu/tools/runner.py:94-428`` (the step
-functions) and ``:432-833`` (``run_net``, ``validate``, ``test_net``,
-``test``), single device, eager PyTorch. Every model trains with its own
-loss (``model.loss``); ``test`` runs the PCN protocol with the auction EMD
-unless ``--no_emd``. The ShapeNet-55 and KITTI test protocols, gradient
-accumulation and multi-GPU wait (ROADMAP Queue 1).
+functions) and ``:432-933`` (``run_net``, ``validate``, ``test_net``,
+``test`` and its protocols), single device, eager PyTorch. Every model
+trains with its own loss (``model.loss``) after the recipe's train
+augmentation (``train_aug``: the ShapeNet-55 crop, the KITTI-finetune
+dropping, or none). ``test`` runs the PCN protocol with the auction EMD
+unless ``--no_emd``, the ShapeNet-55 8-viewpoint crop protocol
+(``--mode``) or the KITTI visualisation. Gradient accumulation and
+multi-GPU wait (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 
@@ -18,18 +22,51 @@ import numpy as np
 import torch
 
 from ..models import build_model
-from ..ops import nn_distance
+from ..ops import fps, mxu_eval_chamfer_active, nn_distance, random_dropping, separate_point_cloud, train_random_crop
 from ..ops.chamfer import _sqrt_floor
 from ..utils.average_meter import AverageMeter
 from ..utils.checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logger import print_log
-from ..utils.metrics import METRIC_NAMES, Metrics, compute_metrics_per_sample, eval_metric_suite
+from ..utils.metrics import METRIC_NAMES, Metrics, compute_metrics_per_sample, eval_metric_suite, f_score
 from .builder import ZERO_GRAD_PARAM_MARKERS, build_opt_sched, dataset_builder
 from .convert import fit_reference_state, load_gdanet_weights, load_reference_state
 
 SHAPENET_DICT_PATH = os.path.join("cfgs", "shapenet_synset_dict.json")
 EVAL_KEYS = ("sparse_l1", "sparse_l2", "dense_l1", "dense_l2", "f_score")
+# ShapeNet-55 protocol: the share of a cloud each mode crops, and the 8
+# corner viewpoints, used as they are (imgadapointr_tpu/tools/runner.py:767-774)
+CROP_RATIO = {"easy": 1 / 4, "median": 1 / 2, "hard": 3 / 4}
+SHAPENET55_VIEWPOINTS = [
+    (1, 1, 1), (1, 1, -1), (1, -1, 1), (-1, 1, 1),
+    (-1, -1, 1), (-1, 1, -1), (1, -1, -1), (-1, -1, -1),
+]
+CROP_INPUT_POINTS = 2048  # a crop's input to the model, by FPS
+
+
+def select_train_aug(config) -> tuple[str, int]:
+    """(train augmentation, its gt size) of a config, as the JAX runner
+    selects them (``imgadapointr_tpu/tools/runner.py:111-140``):
+    ``dataset.train.train_aug`` (``crop``, ``dropping`` or ``none``; the
+    bare key means ``none``), else ``crop`` for a ShapeNet reader,
+    ``dropping`` with ``CARS``, else ``none``. The size is the split's
+    ``N_POINTS`` (default 8192)."""
+    dataset = config.get("dataset")
+    train_cfg = dataset.get("train") if dataset else None
+    base = (train_cfg.get("_base_") or train_cfg) if train_cfg else None
+    aug = train_cfg.get("train_aug") if train_cfg else None
+    if aug is None and train_cfg is not None and "train_aug" in train_cfg:
+        aug = "none"
+    if aug is None and base is not None:
+        name = base.get("NAME", "")
+        if "ShapeNet" in name and "PCN" not in name:
+            aug = "crop"
+        elif base.get("CARS", False):
+            aug = "dropping"
+    aug = aug or "none"
+    if aug not in ("crop", "dropping", "none"):
+        raise ValueError(f"dataset.train.train_aug must be crop|dropping|none, got {aug!r}")
+    return aug, int(base.get("N_POINTS", 8192)) if base else 0
 
 
 class Runner:
@@ -46,7 +83,8 @@ class Runner:
             load_gdanet(self.model, args.gdanet_w, logger)
         self.consider_metric = config.get("consider_metric", "CDL1")
         self.grad_clip = float(config.get("grad_norm_clip", 10.0))
-        # the denoise jitter's stream, on the model's device
+        self.train_aug, self.train_npoints = select_train_aug(config)
+        # the train augmentation's and the denoise jitter's stream, on the model's device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer = None
         self.step = 0  # optimizer steps taken
@@ -67,16 +105,39 @@ class Runner:
         return [batch[k] for k in self.model.inputs]
 
     # ------------------------------------------------------------- train step
-    def train_step(self, batch: dict, epoch_f: float, noise: torch.Tensor | None = None) -> dict:
+    def augment(self, batch: dict, epoch_f: float, draws: dict | None = None) -> dict:
+        """The recipe's train augmentation of a batch on the device: the
+        ShapeNet-55 crop makes ``partial`` from ``gt`` (``train_npoints``
+        points a cloud, FPS to 2048); the KITTI-finetune dropping thins
+        ``partial`` at the epoch ``floor(epoch_f)``. ``draws`` fixes the
+        augmentation's draws (``center`` and ``num_crop``, or ``keep_n``)."""
+        draws = draws or {}
+        with torch.no_grad():  # no gradient reaches the augmentation
+            if self.train_aug == "crop":
+                return dict(batch, partial=train_random_crop(batch["gt"], self.train_npoints,
+                                                             generator=self.generator, **draws))
+            if self.train_aug == "dropping":
+                return dict(batch, partial=random_dropping(batch["partial"], math.floor(epoch_f),
+                                                           generator=self.generator, **draws))
+        return batch
+
+    def train_step(self, batch: dict, epoch_f: float, noise: torch.Tensor | None = None,
+                   aug: dict | None = None) -> dict:
         """One optimizer step on ``batch`` (the model's inputs and 'gt'):
-        forward in train mode with the scheduled BN momentum, the model's
-        own loss at the float epoch ``epoch_f``, backward, clip, AdamW at
-        the scheduled lr. Returns device scalars (no synchronisation):
-        sparse_loss, dense_loss, total_loss, grad_norm (the clip's norm,
-        before the clip, over the parameters with a gradient: a frozen
-        GDANet's flow-through gradients stay out) and the float lr.
-        ``noise`` fixes the denoise jitter's standard-normal draw."""
-        batch = self._to_device(batch)
+        the recipe's augmentation (:meth:`augment`), forward in train mode
+        with the scheduled BN momentum, the model's own loss at the float
+        epoch ``epoch_f``, backward, clip, AdamW at the scheduled lr.
+        Returns device scalars (no synchronisation): sparse_loss,
+        dense_loss, total_loss, grad_norm (the clip's norm, before the clip,
+        over the parameters with a gradient: a frozen GDANet's flow-through
+        gradients stay out) and the float lr.
+
+        Draws from ``self.generator``, in this order: the augmentation's
+        (the crop's (B, 1, 3) normal centre, then its (B, 1) crop sizes; or
+        the dropping's one kept count), then the denoise jitter's standard
+        normal. ``aug`` fixes the augmentation's draws and ``noise`` the
+        jitter's."""
+        batch = self.augment(self._to_device(batch), epoch_f, aug)
         self.model.train()
         lr = self.lr_sched(self.step)
         for group in self.optimizer.param_groups:
@@ -100,11 +161,16 @@ class Runner:
 
     # -------------------------------------------------------------- eval steps
     @torch.inference_mode()
+    def predict(self, batch: dict):
+        """(coarse, dense) clouds of the model in eval mode for a batch on the device."""
+        self.model.eval()
+        return self.model(*self._inputs(batch))
+
+    @torch.inference_mode()
     def _eval_core(self, batch: dict):
         """(B, 5) per-sample metrics in EVAL_KEYS order and the (coarse,
         dense) clouds: one nearest-neighbour pass per cloud pair."""
-        self.model.eval()
-        coarse, dense = self.model(*self._inputs(batch))
+        coarse, dense = self.predict(batch)
         gt = batch["gt"]
         d1, d2, _, _ = nn_distance(coarse, gt)
         sparse_l1 = (_sqrt_floor(d1).mean(dim=1) + _sqrt_floor(d2).mean(dim=1)) / 2.0 * 1000.0
@@ -133,6 +199,24 @@ class Runner:
         protocol = compute_metrics_per_sample(dense, batch["gt"], require_emd=require_emd,
                                               ignore_zeros=True)
         return torch.cat([rows, protocol.to(rows.dtype)], dim=1).double().cpu().numpy()
+
+    @torch.inference_mode()
+    def crop_eval_rows(self, gt: torch.Tensor, num_crop: int) -> np.ndarray:
+        """(8, B, 5) EVAL_KEYS rows of the ShapeNet-55 protocol for gt
+        (B, N, 3) on the device: each cloud cropped towards each of the 8
+        viewpoints (its ``num_crop`` nearest points dropped), FPS'd to 2048,
+        completed and scored against the whole gt; all crops of the batch
+        in one forward, viewpoint-major. Under the matmul-form eval flag the
+        F-Score is recomputed by the exact pass."""
+        B, N, _ = gt.shape
+        V = len(SHAPENET55_VIEWPOINTS)
+        gt_rep = gt.unsqueeze(0).expand(V, B, N, 3).reshape(V * B, N, 3)
+        views = torch.tensor(SHAPENET55_VIEWPOINTS, dtype=gt.dtype, device=gt.device).repeat_interleave(B, 0)
+        partial, _ = separate_point_cloud(gt_rep, num_crop, fixed_point=views)
+        rows, (_, dense) = self._eval_core({"partial": fps(partial, CROP_INPUT_POINTS), "gt": gt_rep})
+        if mxu_eval_chamfer_active(dense.shape[1], N, dense.device):
+            rows[:, 4] = f_score(dense, gt_rep, reduce=False).to(rows.dtype)
+        return rows.reshape(V, B, -1).double().cpu().numpy()
 
     # ------------------------------------------------------------- checkpoints
     def save(self, prefix: str, epoch: int, metrics, best_metrics) -> str:
@@ -186,45 +270,54 @@ def run_net(args, config) -> Runner:
                   "(fresh optimizer/schedules)", logger)
 
     max_epoch = int(config.max_epoch)
-    seed = int(getattr(args, "seed", 0))
-    for epoch in range(start_epoch, max_epoch):
-        # the epoch's order depends on (seed, epoch) only, so a resumed run
-        # sees the batches an uninterrupted one would
-        train_loader.generator.manual_seed(seed * 100003 + epoch)
-        losses = AverageMeter(["SparseLoss", "DenseLoss"])
-        step_losses = []  # device scalars, fetched once at the epoch's end
-        epoch_start = t0 = time.time()
-        n_batches = len(train_loader)
-        for idx, (_, _, batch) in enumerate(train_loader):
-            m = runner.train_step(batch, epoch + idx / steps_per_epoch)
-            step_losses.append(torch.stack([m["sparse_loss"], m["dense_loss"]]))
-            if idx % 100 == 0:  # the only host synchronisation inside an epoch
-                sparse, dense = (float(v) * 1000 for v in step_losses[-1])
-                losses.update([sparse, dense])
-                print_log(
-                    f"[Epoch {epoch}/{max_epoch}][Batch {idx + 1}/{n_batches}] "
-                    f"BatchTime = {time.time() - t0:.3f}s "
-                    f"Losses = {['%.4f' % v for v in losses.val()]} lr = {m['lr']:.6f}",
-                    logger,
-                )
-            t0 = time.time()
-        if step_losses:
-            ep = (torch.stack(step_losses).mean(dim=0) * 1000).tolist()
-        else:
-            ep = losses.avg()
-        print_log(
-            f"[Training] EPOCH: {epoch} EpochTime = {time.time() - epoch_start:.3f}s "
-            f"Losses = {['%.4f' % v for v in ep]}", logger,
-        )
+    save_freq = max(1, int(getattr(args, "save_freq", 1) or 1))
+    try:
+        for epoch in range(start_epoch, max_epoch):
+            # the epoch's order and samples depend on (seed, epoch) only, so a
+            # resumed run sees the batches an uninterrupted one would
+            train_loader.set_epoch(epoch)
+            losses = AverageMeter(["SparseLoss", "DenseLoss"])
+            step_losses = []  # device scalars, fetched once at the epoch's end
+            epoch_start = t0 = time.time()
+            n_batches = len(train_loader)
+            for idx, (_, _, batch) in enumerate(train_loader):
+                m = runner.train_step(batch, epoch + idx / steps_per_epoch)
+                step_losses.append(torch.stack([m["sparse_loss"], m["dense_loss"]]))
+                if idx % 100 == 0:  # the only host synchronisation inside an epoch
+                    sparse, dense = (float(v) * 1000 for v in step_losses[-1])
+                    losses.update([sparse, dense])
+                    print_log(
+                        f"[Epoch {epoch}/{max_epoch}][Batch {idx + 1}/{n_batches}] "
+                        f"BatchTime = {time.time() - t0:.3f}s "
+                        f"Losses = {['%.4f' % v for v in losses.val()]} lr = {m['lr']:.6f}",
+                        logger,
+                    )
+                t0 = time.time()
+            if step_losses:
+                ep = (torch.stack(step_losses).mean(dim=0) * 1000).tolist()
+            else:
+                ep = losses.avg()
+            print_log(
+                f"[Training] EPOCH: {epoch} EpochTime = {time.time() - epoch_start:.3f}s "
+                f"Losses = {['%.4f' % v for v in ep]}", logger,
+            )
 
-        if epoch % int(getattr(args, "val_freq", 1)) == 0:
-            metrics = validate(runner, val_loader, epoch, logger)
-            if metrics.better_than(best_metrics):
-                best_metrics = metrics
-                runner.save("ckpt-best", epoch, metrics, best_metrics)
-        runner.save("ckpt-last", epoch, None, best_metrics)
-        if epoch > max_epoch - 2:
-            runner.save(f"ckpt-epoch-{epoch:03d}", epoch, None, best_metrics)
+            # --save_freq: ckpt-best and ckpt-last on every save_freq-th epoch
+            # and on the last two (imgadapointr_tpu/tools/runner.py:536-555)
+            save_epoch = epoch % save_freq == 0 or epoch >= max_epoch - 2
+            if epoch % int(getattr(args, "val_freq", 1)) == 0:
+                metrics = validate(runner, val_loader, epoch, logger)
+                if metrics.better_than(best_metrics):
+                    best_metrics = metrics
+                    if save_epoch:
+                        runner.save("ckpt-best", epoch, metrics, best_metrics)
+            if save_epoch:
+                runner.save("ckpt-last", epoch, None, best_metrics)
+            if epoch > max_epoch - 2:
+                runner.save(f"ckpt-epoch-{epoch:03d}", epoch, None, best_metrics)
+    finally:  # the loaders' worker processes
+        train_loader.close()
+        val_loader.close()
     return runner
 
 
@@ -266,7 +359,10 @@ def test_net(args, config) -> dict:
     _, test_loader = dataset_builder(args, config.dataset.test)
     runner = Runner(args, config, logger)
     runner.load_weights(args.ckpts)
-    return test(runner, test_loader, args, config, logger)
+    try:
+        return test(runner, test_loader, args, config, logger)
+    finally:
+        test_loader.close()
 
 
 def _load_shapenet_dict() -> dict:
@@ -277,14 +373,15 @@ def _load_shapenet_dict() -> dict:
 
 
 def test(runner: Runner, test_loader, args, config, logger=None) -> dict:
-    """The PCN test protocol: per-taxonomy and overall F-Score, CD-L1,
-    CD-L2 and EMD (x1000); EMD reads 0 with ``--no_emd``."""
+    """The test protocol of the test split's reader: ShapeNet-55's
+    (:func:`_test_shapenet55`), KITTI's (:func:`_test_kitti`), else PCN's:
+    per-taxonomy and overall F-Score, CD-L1, CD-L2 and EMD (x1000); EMD
+    reads 0 with ``--no_emd``."""
     name = config.dataset.test.get("NAME", "")
-    if name == "KITTI" or ("ShapeNet" in name and "PCN" not in name):
-        raise NotImplementedError(
-            f"test protocol of {name} is not ported (ROADMAP Queue 1 item 1: dataset readers and the "
-            "other test protocols)"
-        )
+    if "ShapeNet" in name and "PCN" not in name:
+        return _test_shapenet55(runner, test_loader, args, config, logger)
+    if name == "KITTI":
+        return _test_kitti(runner, test_loader, args, config, logger)
     require_emd = bool(getattr(args, "emd", True))
     print_log(f"[TEST] PCN protocol; EMD {'on' if require_emd else 'off (--no_emd)'}", logger)
     category_metrics: dict[str, AverageMeter] = {}
@@ -301,3 +398,50 @@ def test(runner: Runner, test_loader, args, config, logger=None) -> dict:
                   + "\t" + shapenet_dict.get(tax, tax), logger)
     print_log("Overall\t\t" + "\t".join("%.4f" % v for v in overall), logger)
     return dict(zip(METRIC_NAMES, overall))
+
+
+def _test_shapenet55(runner: Runner, test_loader, args, config, logger=None) -> dict:
+    """The ShapeNet-55/34 protocol (``imgadapointr_tpu/tools/runner.py:834-906``):
+    each gt cloud cropped towards 8 fixed viewpoints at the ``--mode``'s
+    ratio (``median`` by default), completed and scored against the whole
+    cloud (:meth:`Runner.crop_eval_rows`); per-taxonomy means of the 8
+    rows of each cloud, and their mean; EMD is not taken (0)."""
+    npoints = int(config.dataset.test.get("N_POINTS", 8192))
+    mode = getattr(args, "mode", None) or "median"
+    num_crop = int(npoints * CROP_RATIO[mode])
+    category_metrics: dict[str, AverageMeter] = {}
+    for taxonomy_ids, _, batch in test_loader:
+        rows = runner.crop_eval_rows(batch["gt"][:, :npoints].to(runner.device), num_crop)
+        for b, tax in enumerate(taxonomy_ids):
+            _accumulate(category_metrics, [tax] * len(rows),
+                        np.concatenate([rows[:, b][:, [4, 2, 3]], np.zeros((len(rows), 1))], axis=1))
+    overall = _overall(category_metrics)
+    print_log(f"[ShapeNet-55 {mode}] Overall: "
+              + " ".join(f"{n}={v:.4f}" for n, v in zip(METRIC_NAMES, overall)), logger)
+    return dict(zip(METRIC_NAMES, overall))
+
+
+def _test_kitti(runner: Runner, test_loader, args, config, logger=None) -> dict:
+    """The KITTI protocol (``imgadapointr_tpu/tools/runner.py:909-931``): no
+    ground truth, so no metric; one image a cloud of its input and its
+    completion, ``<model_id>_<index>.jpg`` under ``vis_result/`` of the
+    experiment. matplotlib is imported here only."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    target_path = os.path.join(args.experiment_path, "vis_result")
+    os.makedirs(target_path, exist_ok=True)
+    for idx, (_, model_ids, batch) in enumerate(test_loader):
+        _, dense = runner.predict(runner._to_device(batch))
+        partial, dense = batch["partial"][0].numpy(), dense[0].float().cpu().numpy()
+        fig, axes = plt.subplots(1, 2, figsize=(8, 4), subplot_kw={"projection": "3d"})
+        for ax, cloud, title in zip(axes, (partial, dense), ("input", "prediction")):
+            ax.scatter(cloud[:, 0], cloud[:, 1], cloud[:, 2], s=0.4)
+            ax.set_title(title)
+            ax.set_axis_off()
+        fig.savefig(os.path.join(target_path, f"{model_ids[0]}_{idx:03d}.jpg"), dpi=100)
+        plt.close(fig)
+    print_log(f"[KITTI] visualisations saved to {target_path}", logger)
+    return {}

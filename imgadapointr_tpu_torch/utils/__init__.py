@@ -1,5 +1,5 @@
 from .config import AttrDict, cfg_from_yaml_file, get_config
 from .device import resolve_device
-from .registry import MODELS
+from .registry import DATASETS, MODELS
 
-__all__ = ["AttrDict", "cfg_from_yaml_file", "get_config", "resolve_device", "MODELS"]
+__all__ = ["AttrDict", "cfg_from_yaml_file", "get_config", "resolve_device", "DATASETS", "MODELS"]

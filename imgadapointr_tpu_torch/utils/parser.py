@@ -19,6 +19,12 @@ def get_args(argv=None):
     parser.add_argument("--seed", type=int, default=0, help="random seed")
     parser.add_argument("--num_workers", type=int, default=8, help="loader worker processes")
     parser.add_argument("--val_freq", type=int, default=1, help="validate every N epochs")
+    parser.add_argument("--save_freq", type=int, default=1,
+                        help="ckpt-best and ckpt-last every N epochs (and on the last two)")
+    parser.add_argument("--val_bs", type=int, default=1,
+                        help="validation and test batch size (1 = the reference protocol; KITTI's test stays 1)")
+    parser.add_argument("--mode", choices=["easy", "median", "hard"], default=None,
+                        help="ShapeNet-55 test: the share of each cloud cropped (default median)")
     parser.add_argument("--resume", action="store_true", help="continue from ckpt-last.pth")
     parser.add_argument("--start_ckpts", type=str, default=None,
                         help="warm-start the weights from a .pth; fresh optimizer")

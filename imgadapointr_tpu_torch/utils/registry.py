@@ -1,4 +1,5 @@
-"""The port's own model registry (the JAX package's names would clash)."""
+"""The port's own model and dataset registries (the JAX package's names
+would clash in its registries)."""
 
 from __future__ import annotations
 
@@ -36,3 +37,4 @@ class Registry:
 
 
 MODELS = Registry("model")
+DATASETS = Registry("dataset")

@@ -154,6 +154,32 @@ def test_fps_kernel_limits(dev):
         ops.furthest_point_sample(torch.zeros(1, _build.library().fps_max_points() + 1, 3, device=dev), 4)
 
 
+def test_fps_kernel_on_the_recipes_clouds(dev):
+    """The ShapeNet-55 train crop's clouds (8192 points, the nearest 2048 or
+    6144 rows copies of the farthest one: FPS must never pick a copy while
+    a distinct point is left), a test crop, and the KITTI dropping's
+    zero-padded partial: picks equal to the plain version's; the whole
+    crop equal to the CPU's on the same draws."""
+    from imgadapointr_tpu_torch.ops import sampling
+
+    g = torch.Generator().manual_seed(12)
+    gt = _sphere(g, 2, 8192, dev)
+    center = torch.randn(2, 1, 3, generator=g)
+    num_crop = torch.tensor([[2048], [6144]])
+    kept = sampling.train_crop_kept(gt, sampling._unit_center(center.to(dev)), num_crop.to(dev))
+    picks = _launched("fps", lambda: ops.furthest_point_sample(kept, 2048))
+    assert torch.equal(picks, ops.fps_plain(kept, 2048))
+    assert len(torch.unique(ops.index_points(kept, picks)[1], dim=0)) == 2048  # 2048 distinct points kept
+    crop = sampling.train_random_crop(gt, 8192, center=center, num_crop=num_crop)
+    cpu = sampling.train_random_crop(gt.cpu(), 8192, center=center, num_crop=num_crop)
+    assert torch.equal(crop.cpu(), cpu)
+    partial, _ = sampling.separate_point_cloud(gt, 4096, fixed_point=(1, -1, 1))
+    assert torch.equal(ops.furthest_point_sample(partial, 2048), ops.fps_plain(partial, 2048))
+    pc = _cloud(g, 2, 2048, 3, device=dev)
+    pc[:, 1500:] = 0.0
+    assert torch.equal(ops.furthest_point_sample(pc, 768), ops.fps_plain(pc, 768))
+
+
 @pytest.mark.parametrize("M,C,S", [(2048, 3, 4096), (512, 64, 8192), (256, 384, 2048), (16384, 3, 16384), (100, 5, 300)])
 def test_gather_kernel_clamps_like_plain(dev, M, C, S):
     g = torch.Generator().manual_seed(M + C)
