@@ -140,7 +140,31 @@ Phases; any failure exits non-zero and prints no result line:
      here (``tests/test_torch_recipes.py`` drives it on the CPU).
    Each recipe prints its median step (host clock), one profiled step's
    device busy and launches, the peak memory and the loader's host time a
-   batch.
+   batch;
+9. the five PCN baselines at the full width of their shipped configs
+   (``cfgs/PCN_models/{FoldingNet,PCN,TopNet,SnowFlakeNet,GRNet}.yaml``,
+   seeded weights), each on a PCN tree written as in phase 8 (SnowFlakeNet
+   reads it through ``PCNv2``): ``REQUESTS`` requests of ``B`` (2048 ->
+   its dense cloud) with their launch table (:func:`baseline_calls`) and a
+   profiled one; 1 warm-up and ``BASELINE_STEPS`` steps of
+   ``Runner.train_step`` at the config's ``total_bs`` (32 or 64) with the
+   table, every parameter moved, the peak memory and a profiled step;
+   ``validate`` and ``test`` (EMD) on 2 clouds at batch 1 with their
+   tables; one step at batch 2 against the CPU through the plain versions
+   (loss 1e-4, gradient norm 1e-3, relative). SnowFlakeNet's and GRNet's
+   step gradients are taken twice from the same state and every
+   parameter's must be bit-equal (GRNet's 3-D convolutions on cuDNN's
+   deterministic algorithms, which the runner's train step asks for:
+   ``utils/device.py:deterministic_cudnn``). GRNet also serves and steps
+   once more each way round: requests on the deterministic algorithms, and
+   steps and the two-run gradients on cuDNN's default ones (read, not
+   required equal), so that the flag's price and its need show in one run
+   (:func:`without_deterministic_cudnn`). GRNet's point
+   ops (the gridding's scatter, the cubic sampling's gather and its
+   scatter) are also held to the same bits twice and to the CPU's
+   (:func:`check_gridding`). Then
+   ``AdaPoinTr-tiny-k2.yaml`` (``step_per_update: 2``) takes 4 train steps:
+   the optimizer must step on the 2nd and 4th only.
 
 Phase 2 also holds FPS at the recipes' shapes (the ShapeNet-55 train
 crop's 64 x 8192 -> 2048 on crop clouds whose cropped rows are copies of
@@ -195,6 +219,16 @@ set for those calls only: the matmul-form kernel's launches replace the
 exact kernel's in the eval suite, CD-L1 and CD-L2 x1000 stay within 1e-3 of
 the exact run's, and the test table (exact F-score) is the exact run's.
 
+Phase 2 also holds every kernel on the baselines' paths at their train
+steps' shapes (``baseline_calls``): the bidirectional argmin at 32 and 64 x
+16384 x 16384 and the smaller loss pairs, FPS at 64 x {2048 -> 512, 512 ->
+128, 2304 -> 512, 16384 -> 2048, 2048 -> 512, 512 -> 256} (16384 points:
+the ``<16, 1024>`` route, timed by graph replay beside its bound), kNN (k =
+16) over 128, 512 and 2048 points at 64, the gather and the scatter-add at
+SnowFlakeNet's widths (C 3, 64, 128) and at GRNet's volumes (32³ x 32, 16³
+x 64, 8³ x 128, the 2048 + 64³ sampled rows) and the gridding's scatter
+at C = 1 into 64³ rows.
+
 Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.
 """
@@ -202,6 +236,7 @@ line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -221,15 +256,17 @@ from imgadapointr_tpu_torch.datasets import SyntheticPCN
 from imgadapointr_tpu_torch.datasets.loader import base_seed
 from imgadapointr_tpu_torch.datasets.synthetic import _surface_points
 from imgadapointr_tpu_torch.main import swap_synthetic
-from imgadapointr_tpu_torch.models import build_model
+from imgadapointr_tpu_torch.models import BASELINES, build_model
 from imgadapointr_tpu_torch.models import gdanet as port_gdanet
 from imgadapointr_tpu_torch.nn.blocks import _parse_style
 from imgadapointr_tpu_torch.ops import _build, chamfer, pointops, sampling
 from imgadapointr_tpu_torch.ops import emd as port_emd
+from imgadapointr_tpu_torch.ops import gridding as port_gridding
 from imgadapointr_tpu_torch.tools import runner as port_runner
 from imgadapointr_tpu_torch.tools.builder import dataset_builder
 from imgadapointr_tpu_torch.utils.checkpoint import load_checkpoint
 from imgadapointr_tpu_torch.utils.config import cfg_from_yaml_file
+from imgadapointr_tpu_torch.utils.device import deterministic_cudnn
 from imgadapointr_tpu_torch.utils.io_module import IO
 from imgadapointr_tpu_torch.utils.metrics import compute_metrics_per_sample, eval_metric_suite
 
@@ -330,6 +367,11 @@ DEFORM_LISTS = {
     "cross": ["attn-deform", "attn-deform_graph"] + ["attn"] * 6,
 }
 MXU_FLAG = "IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER"
+# phase 9: the five PCN baselines, their timed train steps, the k = 2 config
+BASELINE_STEPS = 3
+K2 = "cfgs/PCN_models/AdaPoinTr-tiny-k2.yaml"
+N_GT = 16384  # the PCN ground truth
+GRNET_CELLS = 64**3
 
 SOURCES = {
     "nn_bidir_argmin": ("imgadapointr_tpu_torch/csrc/nn_bidir_argmin.cu",
@@ -843,7 +885,9 @@ def time_fps(calls, g, dev) -> dict:
     """FPS's times by graph replay and host loop in turns, on new random
     clouds: the request's ``calls`` at ``B``, and beside them the ShapeNet-55
     train crop's one call (:func:`crop_cloud`, 64 x 8192 -> 2048, the
-    ``<16, 512>`` route) with its bound (``crop_*``); in the log an
+    ``<16, 512>`` route) with its bound (``crop_*``) and SnowFlakeNet's
+    loss call (64 x 16384 -> 2048 on sphere clouds, the ``<16, 1024>``
+    route) with its bound and plain time (``snowflake_*``); in the log an
     estimated latency floor of each: the dependent steps times
     :func:`fps_step_cycles` at the card's clock."""
     timed = [(torch.randn(B, N, 3, generator=g).to(dev), n) for N, n in calls]
@@ -866,6 +910,22 @@ def time_fps(calls, g, dev) -> dict:
         f"replay {crop_turns['graph'][0]:.4f} ms ({crop_turns['graph'][0] * 1e3 / (N_PARTIAL - 1):.4f} us a step), "
         f"host loop {crop_turns['loop'][0]:.4f} ms; bound {max(op_ms, byte_ms):.4f} ms; estimated latency floor "
         f"{crop_floor:.4f} ms; each pair {json.dumps(crop_turns['pairs'])}")
+    # SnowFlakeNet's loss: fps(gt, 2048) of its 16384-point ground truth at 64 (the <16, 1024> route)
+    b, n, picks = 64, N_GT, 2048
+    gt = sphere(g, b, n, dev)
+    sf = in_turns(lambda: ops.furthest_point_sample(gt, picks), None, reps=(10, 10))
+    op_ms = b * (picks - 1) * n * (OPS_PAIR_ONE_WAY + 1) / PEAK_F32 * 1e3
+    byte_ms = b * (n * 12 + picks * 8) / PEAK_BYTES * 1e3
+    sf_floor = (picks - 1) * fps_step_cycles(n) / sm_clock_hz() * 1e3
+    t["more"].update({"snowflake_ms": sf["graph"][0], "snowflake_loop_ms": sf["loop"][0],
+                      "snowflake_plain_ms": cuda_ms(lambda: ops.fps_plain(gt, picks), 1),
+                      "snowflake_bound_ms": max(op_ms, byte_ms),
+                      "snowflake_bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                      "snowflake_shape": [b, n, picks]})
+    log(f"phase 2: fps, SnowFlakeNet's loss call {b} x {n} -> {picks} (the <16, 1024> route), in turns: graph "
+        f"replay {sf['graph'][0]:.4f} ms ({sf['graph'][0] * 1e3 / (picks - 1):.4f} us a step), host loop "
+        f"{sf['loop'][0]:.4f} ms; plain {t['more']['snowflake_plain_ms']:.4f} ms; bound {max(op_ms, byte_ms):.4f} ms; "
+        f"estimated latency floor {sf_floor:.4f} ms; each pair {json.dumps(sf['pairs'])}")
     return t
 
 
@@ -1721,8 +1781,9 @@ def mxu_hmma(lib_path) -> int:
 def make_requests(cfg, seed: int, n_requests: int, b: int = B) -> list:
     """``n_requests`` requests of ``b`` synthetic samples for ``cfg``'s
     model: dicts of stacked numpy arrays, the model's inputs (partial cloud,
-    and an image and a class one-hot where it takes them) and ``gt``."""
-    data = SyntheticPCN({"N_POINTS": int(cfg.num_points), "N_PARTIAL": N_PARTIAL,
+    and an image and a class one-hot where it takes them) and ``gt`` (of
+    ``num_points``, else ``N_GT`` points)."""
+    data = SyntheticPCN({"N_POINTS": int(cfg.get("num_points", N_GT)), "N_PARTIAL": N_PARTIAL,
                          "LENGTH": b * n_requests, "SEED": seed, "WITH_IMG": "Img" in cfg.NAME,
                          "WITH_CLS": "Seg" in cfg.NAME, "others": {"subset": "test"}})
     samples = [data.get(i, None)[2] for i in range(len(data))]
@@ -1921,27 +1982,27 @@ def check_launches(what: str, want: dict, times: int) -> dict:
     return got
 
 
-def run_train_steps(runner, batches, calls, what: str, phase: str):
-    """1 warm-up and ``TRAIN_STEPS`` timed steps of ``runner`` on
-    ``batches`` (the loader's, in order), their losses finite and their
-    launches the table ``calls``; returns (launch counts, step seconds,
-    peak bytes allocated)."""
+def run_train_steps(runner, batches, calls, what: str, phase: str, steps: int = TRAIN_STEPS):
+    """1 warm-up and ``steps`` timed steps of ``runner`` on ``batches``
+    (the loader's, in order), their losses finite and their launches the
+    table ``calls``; returns (launch counts, step seconds, peak bytes
+    allocated)."""
     secs, _ = timed_step(runner, batches[0], 0.0)  # warm-up (cuBLAS handles, caches)
     log(f"{phase}: warm-up step {secs * 1e3:.1f} ms")
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     times = []
-    for i, batch in enumerate(batches[1:1 + TRAIN_STEPS]):
+    for i, batch in enumerate(batches[1:1 + steps]):
         secs, m = timed_step(runner, batch, (i + 1) / len(batches))
         times.append(secs)
         require(all(np.isfinite(v) for v in m.values()), f"{phase} step {i}: non-finite {m}")
         log(f"{phase}: step {i}: {secs * 1e3:.1f} ms; sparse {m['sparse_loss']:.5f} dense "
             f"{m['dense_loss']:.5f} grad norm {m['grad_norm']:.4f} lr {m['lr']:.3e}")
-    counts = check_launches(what, calls, TRAIN_STEPS)
+    counts = check_launches(what, calls, steps)
     peak = torch.cuda.max_memory_allocated()
     log(f"{phase}: median step {statistics.median(times) * 1e3:.1f} ms at batch {len(batches[0]['gt'])}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB; launches per step "
-        f"{json.dumps({k: v // TRAIN_STEPS for k, v in counts.items()})}")
+        f"{json.dumps({k: v // steps for k, v in counts.items()})}")
     return counts, times, peak
 
 
@@ -2880,6 +2941,395 @@ def recipes_phase(seed: int, dev, card: str):
     return counts, {"pcn": pcn, "shapenet55": shapenet, "kitti": kitti}
 
 
+# ------------------------------------------------------------ phase 9 path
+
+
+def chamfer_calls(n_x: int, n_y: int, grad_x: bool = True, grad_y: bool = False) -> dict:
+    """One ``nn_distance`` of clouds of n_x and n_y points: the argmin, the
+    two residual gathers and, in a train step, one scatter for each cloud
+    that needs a gradient (the other cloud's cross term)."""
+    return {"nn_bidir_argmin": [(n_x, n_y)], "gather_rows": [(n_y, 3, n_x), (n_x, 3, n_y)],
+            "scatter_add_rows": [(n_x, 3, n_y)] * grad_x + [(n_y, 3, n_x)] * grad_y}
+
+
+def baseline_calls(cfg) -> dict:
+    """Each kernel's calls per batch element of a baseline, from its model
+    config: ``forward`` (the eval forward), ``train`` (a train step: the
+    forward in train mode, the loss, the backward), and the eval clouds'
+    sizes ``coarse`` and ``fine``. FoldingNet, PCN and TopNet launch
+    nothing in their forward. SnowFlakeNet: FPS and its gather in the two
+    set abstractions and on the seeds with the partial; kNN (k = 16) and
+    the gathers of keys and positions in each transformer (the sets' groups
+    too); its loss FPS's the ground truth down to P2, P1 and Pc. GRNet: the
+    gridding's scatter (C = 1, 8 corners a point, into 64³ rows), the point
+    sampling's gather over 2048 + 64³ rows and the three cubic samplings'
+    gathers. In training each gather whose table needs a gradient adds its
+    scatter."""
+    name, N, k = cfg.NAME, N_PARTIAL, 16
+    fwd = {"knn": [], "fps": [], "gather_rows": [], "scatter_add_rows": []}
+    grad_gathers, loss_fps, loss_gathers = [], [], []
+    if name in ("FoldingNet", "TopNet"):
+        coarse = fine = int(cfg.num_pred)
+        loss = [(fine, N_GT, True, False)] * 2
+    elif name == "PCN":
+        fine = int(cfg.num_pred)
+        coarse = fine // 16
+        loss = [(coarse, N_GT, True, False), (fine, N_GT, True, False)]
+    elif name == "SnowFlakeNet":
+        num_pc, n = int(cfg.num_pc), int(cfg.num_p0)
+        fwd["fps"] = [(N, 512), (512, 128), (num_pc + N, n)]
+        fwd["knn"] = [(k, 512, N), (k, 512, 512), (k, 128, 512), (k, 128, 128)]
+        sets = [(512, 64, 512 * k), (512, 128, 128 * k), (128, 64, 128 * k)]  # keys, sa2's features
+        fwd["gather_rows"] = [(N, 3, 512), (512, 3, 128), (num_pc + N, 3, n), (N, 3, 512 * k), (N, 3, 512 * k),
+                              (512, 3, 512 * k), (512, 3, 128 * k), (128, 3, 128 * k)] + sets
+        grad_gathers = [(num_pc + N, 3, n)] + sets
+        sizes = [num_pc]
+        for up in [1] + [int(u) for u in cfg.up_factors]:  # each SPD's skip transformer on its input
+            fwd["knn"].append((k, n, n))
+            grad_gathers += [(n, 64, n * k), (n, 3, n * k)]
+            n *= up
+            sizes.append(n)
+        fwd["gather_rows"] += grad_gathers[4:]
+        pc, p1, p2, p3 = sizes
+        coarse, fine = p1, p3
+        loss_fps = [(N_GT, p2), (p2, p1), (p1, pc)]
+        loss_gathers = [(N_GT, 3, p2), (p2, 3, p1), (p1, 3, pc)]
+        loss = [(pc, pc, True, False), (p1, p1, True, False), (p2, p2, True, False), (N, p3, False, True),
+                (p3, N_GT, True, False)]
+    elif name == "GRNet":
+        fine = int(cfg.num_pred)
+        coarse = fine // 8
+        fwd["scatter_add_rows"] = [(GRNET_CELLS, 1, N * 8)]
+        grad_gathers = [(N + GRNET_CELLS, 3, coarse)] + [(s**3, c, coarse * 8) for s, c in ((32, 32), (16, 64),
+                                                                                               (8, 128))]
+        fwd["gather_rows"] = list(grad_gathers)
+        loss = [(coarse, N_GT, True, False), (fine, N_GT, True, False)]
+    else:
+        raise ValueError(f"{name} is no baseline")
+    train = merged(fwd, {"fps": loss_fps, "gather_rows": loss_gathers, "scatter_add_rows": grad_gathers},
+                   *[chamfer_calls(*c) for c in loss])
+    return {"forward": fwd, "train": train, "coarse": coarse, "fine": fine}
+
+
+def baseline_eval_calls(calls: dict, protocol: str) -> dict:
+    """One cloud's calls in a request (``serve``: the forward and the
+    metric suite's pass over the dense cloud), in ``validate`` (and the
+    coarse cloud's pass) or in ``test`` at batch 1 (and the masked pass
+    over the dense cloud, the table's exact F-score, the auction)."""
+    fine, coarse = calls["fine"], calls["coarse"]
+    out = merged(calls["forward"], {k: v for k, v in chamfer_calls(fine, N_GT, False).items()
+                                    if k != "scatter_add_rows"})
+    if protocol in ("validate", "test"):
+        out = merged(out, {"nn_bidir_argmin": [(coarse, N_GT)], "gather_rows": [(N_GT, 3, coarse), (coarse, 3, N_GT)]})
+    if protocol == "test":
+        out = merged(out, {"nn_one_direction": [(fine, N_GT), (N_GT, fine)], "nn_bidir_argmin": [(fine, N_GT)],
+                           "gather_rows": [(N_GT, 3, fine), (fine, 3, N_GT)] * 2, "auction_top2": None})
+    return out
+
+
+def serve_baseline(model, calls: dict, batches, dev):
+    """Answer each request with a baseline; per-request seconds and metrics."""
+    secs, scores = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            coarse, fine = model(torch.from_numpy(batch["partial"]).to(dev))
+            f, l1, l2 = eval_metric_suite(fine, torch.from_numpy(batch["gt"]).to(dev))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        n = batch["partial"].shape[0]
+        require(tuple(coarse.shape) == (n, calls["coarse"], 3) and tuple(fine.shape) == (n, calls["fine"], 3),
+                f"{type(model).__name__}: shapes {tuple(coarse.shape)} {tuple(fine.shape)}")
+        require(bool(torch.isfinite(coarse).all() and torch.isfinite(fine).all()), "non-finite output")
+        scores.append((float(f), float(l1), float(l2)))
+        require(all(np.isfinite(v) for v in scores[-1]), f"non-finite metrics {scores[-1]}")
+    return secs, scores
+
+
+def loader_batches(loader, n: int) -> list:
+    """The loader's first ``n`` batches, epoch after epoch."""
+    out, epoch = [], 0
+    while len(out) < n:
+        loader.set_epoch(epoch)
+        out += [b for _, _, b in itertools.islice(loader, n - len(out))]
+        epoch += 1
+    return out
+
+
+def grnet_noise(b: int, seed: int) -> torch.Tensor:
+    """Uniform point-sampling scores for GRNet's (2048 + 64³)-row cloud."""
+    return torch.rand(b, N_PARTIAL + GRNET_CELLS, generator=torch.Generator().manual_seed(seed))
+
+
+def baseline_determinism(runner, batch, epoch_f: float, noise, deterministic: bool = True) -> dict:
+    """One train step's gradients (no optimizer step) twice from the same
+    state, batch and draws, on cuDNN's deterministic algorithms as the
+    runner's step takes them (``deterministic``) or on its default ones:
+    whether the outputs, the loss's gradient with respect to the predicted
+    clouds on the first run's clouds (the chamfer backward) and every
+    parameter's gradient agree bit for bit; the chamfer's is always
+    required equal, the others under ``deterministic``, and the differing
+    parameters listed. State and generator restored."""
+    model = runner.model
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = runner.generator.get_state()
+    batch = runner._to_device(batch)
+    noise = None if noise is None else noise.to(batch["gt"].device)
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        runner.generator.set_state(gen)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with deterministic_cudnn() if deterministic else contextlib.nullcontext():
+            ret = model(*runner._inputs(batch), bn_momentum=runner.bnm_sched(epoch_f),
+                        generator=runner.generator, noise=noise)
+            sum(model.loss(ret, batch["gt"], epoch_f)).backward()
+        runs.append(([t.detach().clone() for t in ret],
+                     {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}))
+    model.load_state_dict(state)
+    runner.generator.set_state(gen)
+    model.zero_grad(set_to_none=True)
+    (r1, p1), (r2, p2) = runs
+    iso = []
+    for _ in range(2):  # the loss's gradient on run 1's clouds, the forward held fixed
+        leaves = [t.clone().requires_grad_(t.dtype.is_floating_point) for t in r1]
+        iso.append(torch.autograd.grad(sum(model.loss(tuple(leaves), batch["gt"], epoch_f)),
+                                       [x for x in leaves if x.requires_grad], allow_unused=True))
+    differ = sorted(n for n in p1 if not torch.equal(p1[n], p2[n]))
+    out = {"outputs_equal": all(torch.equal(a, b) for a, b in zip(r1, r2)),
+           "cloud_grads_equal_fixed_forward": all(a is None and b is None or torch.equal(a, b)
+                                                  for a, b in zip(*iso)),
+           "param_grads_equal": not differ, "param_grads_differing": len(differ), "params_with_grad": len(p1),
+           "differing": differ,
+           "max_abs_param_grad_diff": max((float((p1[n] - p2[n]).abs().max()) for n in differ), default=0.0)}
+    log(f"phase 9: {type(model).__name__}: one train step's gradients twice from the same state, cuDNN "
+        f"{'deterministic' if deterministic else 'default'}: " + json.dumps(out))
+    require(out["cloud_grads_equal_fixed_forward"], "the loss's gradient on fixed clouds differs between runs")
+    require(not deterministic or out["outputs_equal"] and out["param_grads_equal"],
+            f"{type(model).__name__}: {len(differ)} parameters' gradients differ between two runs ({differ[:5]})")
+    return out
+
+
+def without_deterministic_cudnn(run):
+    """``run()`` with ``Runner.train_step`` on cuDNN's default algorithms:
+    its :func:`deterministic_cudnn` replaced by a no-op for the call."""
+    saved = port_runner.deterministic_cudnn
+    port_runner.deterministic_cudnn = contextlib.nullcontext
+    try:
+        return run()
+    finally:
+        port_runner.deterministic_cudnn = saved
+
+
+def grnet_step_on_default_cudnn(runner, batches, noise, steps: int) -> dict:
+    """GRNet's train step on cuDNN's default algorithms: 1 warm-up and
+    ``steps`` timed steps, a profiled one and the two-run gradients."""
+    step = lambda b, e: timed_step(runner, b, e, noise=noise)[0]  # noqa: E731
+    without_deterministic_cudnn(lambda: step(batches[0], 0.5))
+    times = [without_deterministic_cudnn(lambda: step(b, 0.5)) for b in batches[1:1 + steps]]
+    prof = without_deterministic_cudnn(lambda: profile_run(lambda: step(batches[-1], 0.9)))
+    det = baseline_determinism(runner, batches[-1], 0.9, noise, deterministic=False)
+    return {"median_step_ms": statistics.median(times) * 1e3, "step_ms": [t * 1e3 for t in times],
+            "profiled_step": {k: v for k, v in prof.items() if k != "top"},
+            "step_determinism": {k: det[k] for k in ("outputs_equal", "param_grads_equal", "param_grads_differing",
+                                                     "params_with_grad", "max_abs_param_grad_diff")}}
+
+
+def baseline_card_vs_cpu(config, seed: int, workdir: str) -> dict:
+    """One train step at batch 2 and full width on the card against the
+    same step on the CPU through the plain versions: same weights, batch
+    and point-sampling scores (GRNet)."""
+    data = SyntheticPCN({"N_POINTS": N_GT, "N_PARTIAL": N_PARTIAL, "LENGTH": 2, "SEED": seed + 1,
+                         "others": {"subset": "train"}})
+    samples = [data.get(i, None)[2] for i in range(2)]
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples])) for k in samples[0]}
+    noise = grnet_noise(2, seed) if config.model.NAME == "GRNet" else None
+    out = {}
+    for device in ("cuda", "cpu"):
+        runner = port_runner.Runner(types.SimpleNamespace(device=device, seed=seed, experiment_path=workdir),
+                                    config, logger="silent")
+        runner.make_train_state(1)
+        require(next(runner.model.parameters()).device.type == device, f"the {device} runner's model is elsewhere")
+        m = runner.train_step(batch, 0.0, noise=noise)
+        out[device] = {k: float(m[k]) for k in ("total_loss", "grad_norm")}
+        del runner
+    for k in ("total_loss", "grad_norm"):
+        out[f"{k}_rel_diff"] = abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+    return out
+
+
+def check_gridding(g, dev) -> dict:
+    """GRNet's point ops at its train batch (32 clouds of 2048 points):
+    the gridding (64³, its scatter at C = 1) and the three cubic
+    samplings with their VJPs, twice on the card (the same bits) and on
+    the CPU (the same bits but for the points' gradient, a sum over each
+    point's corners in the reduction's own order: 1e-5)."""
+    b = 32
+    pts = torch.rand(b, N_PARTIAL, 3, generator=g) - 0.5
+    pts[0, 1500:] = 0.0
+    vols = [torch.randn(b, s, s, s, c, generator=g) for s, c in ((32, 32), (16, 64), (8, 128))]
+    w = torch.randn(b, 64, 64, 64, generator=g)
+    runs = {}
+    for device in ("cuda", "cuda", "cpu"):
+        p = pts.to(device).requires_grad_(True)
+        fs = [v.to(device).requires_grad_(True) for v in vols]
+        grid = port_gridding.gridding(p, 64)
+        sampled = [port_gridding.cubic_feature_sampling(p[:, :256] * 2.0, f) for f in fs]
+        loss = (grid * w.to(device)).sum() + sum(t.square().sum() for t in sampled)
+        loss.backward()
+        runs.setdefault(device, []).append([t.detach().cpu() for t in [grid, *sampled, p.grad, *[f.grad for f in fs]]])
+    (a, b2), (c,) = runs["cuda"], runs["cpu"]
+    require(all(torch.equal(x, y) for x, y in zip(a, b2)), "gridding / cubic sampling: two card runs differ")
+    same = [torch.equal(x, y) for i, (x, y) in enumerate(zip(a, c)) if i != 4]
+    require(all(same), f"gridding / cubic sampling: the card differs from the CPU ({same})")
+    dp = float((a[4] - c[4]).abs().max() / c[4].abs().max())
+    require(dp <= 1e-5, f"gridding: the points' gradient differs from the CPU's by {dp}")
+    out = {"batch": b, "card_runs_equal": True, "card_equals_cpu": True, "points_grad_rel_diff": dp}
+    log("phase 9: GRNet's gridding and cubic sampling with their VJPs: " + json.dumps(out))
+    return out
+
+
+def baseline_phase(name: str, seed: int, dev, card: str, root: str, workdir: str):
+    """Phase 9 for one baseline (see the module docstring); returns the
+    launch counts and the summary."""
+    config = cfg_from_yaml_file(f"cfgs/PCN_models/{name}.yaml")
+    for split in ("train", "val", "test"):
+        root_paths(config.dataset[split], root)
+    cfg = config.model
+    calls = baseline_calls(cfg)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 9: {name} built on {dev}, {n_params} parameters, {time.perf_counter() - t0:.1f} s")
+    requests = make_requests(cfg, seed, REQUESTS + 1)
+    serve_baseline(model, calls, requests[:1], dev)  # warm-up
+    _build.reset_launches()
+    secs, scores = serve_baseline(model, calls, requests[1:], dev)
+    counts = {f"{name}_request": check_launches(f"{name}'s requests", baseline_eval_calls(calls, "serve"), REQUESTS)}
+    prof = profile_run(lambda: serve_baseline(model, calls, [requests[1]], dev)[0][0])
+    log(f"phase 9: {name}: {REQUESTS} requests of {B} x {N_PARTIAL} -> {calls['fine']}: "
+        f"{json.dumps([round(t * 1e3, 2) for t in secs])} ms; metrics (F, CD-L1, CD-L2) {json.dumps(scores)}; "
+        f"one profiled request: {json.dumps(prof)}")
+    cudnn = {}
+    if name == "GRNet":  # the same requests on cuDNN's deterministic algorithms, as a train step runs
+        with deterministic_cudnn():
+            serve_baseline(model, calls, requests[:1], dev)
+            det_secs, _ = serve_baseline(model, calls, requests[1:], dev)
+            det_prof = profile_run(lambda: serve_baseline(model, calls, [requests[1]], dev)[0][0])
+        cudnn["request_deterministic"] = {"median_request_ms": statistics.median(det_secs) * 1e3,
+                                          "profiled_request": {k: v for k, v in det_prof.items() if k != "top"}}
+        log("phase 9: GRNet: requests on cuDNN's deterministic algorithms: "
+            + json.dumps(cudnn["request_deterministic"]))
+    del model
+    torch.cuda.empty_cache()
+
+    bs = int(config.total_bs)
+    config.dataset.train.others.bs = bs
+    for split in ("val", "test"):
+        config.dataset[split].others.bs = 1
+    args = recipe_args(seed, workdir)
+    _, train_loader = dataset_builder(args, config.dataset.train)
+    _, val_loader = dataset_builder(args, config.dataset.val)
+    _, test_loader = dataset_builder(args, config.dataset.test)
+    runner = port_runner.Runner(args, config, logger="silent")
+    runner.make_train_state(len(train_loader))
+    batches = loader_batches(train_loader, BASELINE_STEPS + 2)
+    before = {n: p.detach().clone() for n, p in runner.model.named_parameters()}
+    train, times, peak = run_train_steps(runner, batches, calls["train"], f"{name}'s train steps", "phase 9",
+                                         steps=BASELINE_STEPS)
+    counts[f"{name}_train"] = train
+    check_trained(runner.model, before)
+    noise = grnet_noise(bs, seed + 2) if name == "GRNet" else None
+    step_prof = profile_run(lambda: timed_step(runner, batches[-1], 0.9, noise=noise)[0])
+    log(f"phase 9: {name}: one profiled train step at {bs}: " + json.dumps(step_prof))
+    _build.reset_launches()
+    metrics = port_runner.validate(runner, val_loader, 0, "silent")
+    counts[f"{name}_validate"] = check_launches(f"{name}'s validate", baseline_eval_calls(calls, "validate"),
+                                                EVAL_CLOUDS)
+    _build.reset_launches()
+    table = port_runner.test(runner, test_loader, args, config, "silent")
+    counts[f"{name}_test"] = check_launches(f"{name}'s test", baseline_eval_calls(calls, "test"), EVAL_CLOUDS)
+    require(all(np.isfinite(v) for v in metrics.state_dict().values()), f"{name} validate: {metrics}")
+    require(all(np.isfinite(v) for v in table.values()) and table["EMDistance"] > 0, f"{name} test: {table}")
+    log(f"phase 9: {name}: validate on {EVAL_CLOUDS} clouds {json.dumps(metrics.state_dict())}; test (EMD, "
+        f"{counts[f'{name}_test']['auction_top2']} top-2 launches) {json.dumps({k: float(v) for k, v in table.items()})}")
+    determinism = None
+    if name in ("SnowFlakeNet", "GRNet"):
+        determinism = baseline_determinism(runner, batches[-1], 0.9, noise)
+    if name == "GRNet":
+        cudnn["step_default"] = grnet_step_on_default_cudnn(runner, batches, noise, BASELINE_STEPS)
+        log("phase 9: GRNet: train steps on cuDNN's default algorithms: " + json.dumps(cudnn["step_default"]))
+    train_loader.close()
+    del runner, batches
+    torch.cuda.empty_cache()
+    agree = baseline_card_vs_cpu(config, seed, workdir)
+    log(f"phase 9: {name}: card vs CPU, one step at batch 2: " + json.dumps(agree))
+    require(agree["total_loss_rel_diff"] <= 1e-4, f"{name}: the card's loss disagrees with the CPU's")
+    require(agree["grad_norm_rel_diff"] <= 1e-3, f"{name}: the card's gradient norm disagrees with the CPU's")
+    summary = {"params": n_params, "request_batch": B, "median_request_ms": statistics.median(secs) * 1e3,
+               "profiled_request": {k: v for k, v in prof.items() if k != "top"},
+               "train_batch": bs, "step_ms": [t * 1e3 for t in times], "median_step_ms": statistics.median(times) * 1e3,
+               "max_memory_allocated_gib": peak / 2**30,
+               "profiled_step": {k: v for k, v in step_prof.items() if k != "top"},
+               "card_vs_cpu_step": {k: agree[k] for k in ("total_loss_rel_diff", "grad_norm_rel_diff")},
+               "step_determinism": determinism}
+    if cudnn:
+        summary["cudnn"] = cudnn
+    return counts, summary
+
+
+def k2_check(seed: int, workdir: str) -> dict:
+    """``AdaPoinTr-tiny-k2.yaml`` (``step_per_update: 2``) on synthetic data
+    at its total_bs: 4 train steps; the parameters and the optimizer move on
+    the 2nd and the 4th only, and only those log a gradient norm."""
+    config = cfg_from_yaml_file(K2)
+    bs = int(config.total_bs)
+    swap_synthetic(config, train_len=4 * bs)
+    config.dataset.train.others.bs = bs
+    args = types.SimpleNamespace(device="cuda", seed=seed, num_workers=0, experiment_path=workdir)
+    _, loader = dataset_builder(args, config.dataset.train)
+    runner = port_runner.Runner(args, config, logger="silent")
+    runner.make_train_state(len(loader))
+    moved, logged, steps = [], [], []
+    for i, (_, _, batch) in enumerate(loader):
+        before = {n: p.detach().clone() for n, p in runner.model.named_parameters()}
+        m = runner.train_step(batch, i / len(loader))
+        moved.append(any(not torch.equal(p, before[n]) for n, p in runner.model.named_parameters()))
+        logged.append("grad_norm" in m)
+        steps.append(sorted({int(st["step"]) for st in runner.optimizer.state.values()}))
+    out = {"batch": bs, "steps": len(moved), "moved": moved, "grad_norm_logged": logged, "optimizer_steps": steps}
+    log("phase 9: AdaPoinTr-tiny-k2 (step_per_update 2): " + json.dumps(out))
+    require(moved == logged == [False, True, False, True] and steps[-1] == [2],
+            "step_per_update 2: the optimizer did not step once every 2 batches")
+    return out
+
+
+def baselines_phase(seed: int, dev, card: str):
+    """Phase 9: the five baselines on a PCN tree written into a temporary
+    directory (removed at the end), then the k = 2 check; returns the launch
+    counts and the summaries."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        pcn = cfg_from_yaml_file(CONFIG).dataset.train
+        root_paths(pcn, root)
+        write_pcn_tree(pcn, seed)
+        counts, summary = {}, {"gridding": check_gridding(torch.Generator().manual_seed(seed), dev)}
+        for name in BASELINES:
+            more, summary[name] = baseline_phase(name, seed, dev, card, root, workdir)
+            counts.update(more)
+            log(f"phase 9: {name} on {card}: " + json.dumps(summary[name]))
+        summary["k2"] = k2_check(seed, workdir)
+        log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(workdir, ignore_errors=True)
+    return counts, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2972,6 +3422,11 @@ def main(argv=None) -> int:
     sn_cfg = cfg_from_yaml_file(SHAPENET).model
     recipe_tables = [(B_SHAPENET, train_step_calls(sn_cfg)), (n_test, eval_calls(sn_cfg, "validate"))]
     recipe_tables += [(b, eval_calls(cfg, "test")) for b in (1, B_VAL)]
+    # the baselines' train steps at their total_bs (phase 9): SnowFlakeNet's
+    # FPS (16384 -> 2048 among them), kNN and gathers at 64, GRNet's
+    # volumes, sampled rows and gridding scatter at 32, every loss's argmin
+    recipe_tables += [(int(bc.total_bs), baseline_calls(bc.model)["train"])
+                      for bc in (cfg_from_yaml_file(f"cfgs/PCN_models/{n}.yaml") for n in BASELINES)]
     for name in ("knn", "fps", "gather_rows", "nn_bidir_argmin", "scatter_add_rows"):
         extra[name] += [(b, c) for b, table in recipe_tables for c in table.get(name) or []]
     g = torch.Generator().manual_seed(args.seed)
@@ -3057,6 +3512,10 @@ def main(argv=None) -> int:
     recipe_counts, recipes_summary = recipes_phase(args.seed, dev, card)
     counts.update(recipe_counts)
 
+    # ---- phase 9: the five PCN baselines, and gradient accumulation
+    baseline_counts, baselines_summary = baselines_phase(args.seed, dev, card)
+    counts.update(baseline_counts)
+
     kernels = []
     for name in _build.KERNELS:
         err, t, n_ops, nbytes = results[name]
@@ -3083,6 +3542,10 @@ def main(argv=None) -> int:
             "launches_per_kitti_train_step": counts["kitti_train"][name] // TRAIN_STEPS,
             "launches_shapenet55_test_batch": {m: counts[f"shapenet_test_{m}"][name] // (EVAL_CLOUDS // B_VAL)
                                                for m in port_runner.CROP_RATIO},
+            "launches_baselines": {b: {"request": counts[f"{b}_request"][name] // REQUESTS,
+                                       "train_step": counts[f"{b}_train"][name] // BASELINE_STEPS,
+                                       "validate": counts[f"{b}_validate"][name], "test": counts[f"{b}_test"][name]}
+                                   for b in BASELINES},
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
@@ -3102,7 +3565,7 @@ def main(argv=None) -> int:
                                   "superset_serving": superset_summary,
                                   "superset_training": superset_train_summary,
                                   "deform": deform_summary | {"grouped_deform_gather": grouped_gather},
-                                  "recipes": recipes_summary}))
+                                  "recipes": recipes_summary, "baselines": baselines_summary}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,12 +29,13 @@ from .utils.parser import get_args
 
 def swap_synthetic(config, train_len: int | None = None) -> None:
     """Point every dataset split at SyntheticPCN, keeping the model's
-    shapes, with images for an image model and class one-hots for a
+    shapes (a ground truth of ``num_points``, else ``num_pred``, else 16384
+    points), with images for an image model and class one-hots for a
     segmentation model (by name, as ``main.py:114-115`` of the JAX package
     decides). ``train_len`` falls back to $SYN_TRAIN_LEN, then 64."""
     if train_len is None:
         train_len = int(os.environ.get("SYN_TRAIN_LEN", 64))
-    n_points = int(config.model.get("num_points", 16384))
+    n_points = int(config.model.get("num_points", config.model.get("num_pred", 16384)))
     for split in ("train", "val", "test"):
         if split in config.dataset:
             sub = config.dataset[split]

@@ -186,10 +186,14 @@ class BatchNorm(nn.Module):
     it before each step): ``running = (1 - m) * running + m * batch``.
 
     In train mode the batch statistics are taken over every other axis in
-    >= float32, as ``imgadapointr_tpu/nn/layers.py:255-276`` takes them: the
-    variance is ``E[x^2] - E[x]^2``, biased for the normalisation and
-    unbiased for the running update. Buffers match ``torch.nn.BatchNorm1d``
-    for state-dict loading."""
+    >= float32, as ``imgadapointr_tpu/nn/layers.py:255-276`` takes them,
+    but the variance in two passes, ``E[(x - E[x])^2]`` (torch's own
+    BatchNorm does likewise), where the JAX package takes ``E[x^2] -
+    E[x]^2``: a channel whose mean is 130 times its spread (FoldingNet's
+    folds, a global feature added to every point) loses four digits to that
+    cancellation in float32. Biased for the normalisation, unbiased for the
+    running update. Buffers match ``torch.nn.BatchNorm1d`` for state-dict
+    loading."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -206,7 +210,7 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xs.mean(dim=axes)
-            var = xs.square().mean(dim=axes) - mean.square()
+            var = (xs - mean).square().mean(dim=axes)
             n = x.numel() // x.shape[-1]
             with torch.no_grad():
                 m = float(self.momentum)
@@ -243,7 +247,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded init, every weight drawn in module order from ``generator``:
     Linear, ConcatDense and the attention projections flax-style (truncated
     normal, std 0.02, biases zero), convolutions as torchvision's ResNet
-    draws them (Kaiming normal, fan out); norms keep their own values."""
+    draws them (Kaiming normal, fan out; biases zero); norms keep their own
+    values."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (Linear, ConcatDense)):
@@ -253,7 +258,9 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(m, MultiheadAttention):
                 trunc_normal_flax_(m.in_proj_weight, 0.02, generator)
                 m.in_proj_bias.zero_()
-            elif isinstance(m, nn.Conv2d):
+            elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu",
                                         generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
     return model

@@ -14,6 +14,18 @@ are stacked back by rows, the split q / k / v maps are packed into
 statistics copy across. Because the port's parameters carry the reference
 names, the result loads with ``model.load_state_dict(sd, strict=True)``.
 
+The five baselines (FoldingNet, PCN, TopNet, SnowFlakeNet, GRNet) have no
+reference converter in the JAX package (``converter_for`` raises at
+``imgadapointr_tpu/tools/convert_torch.py:565``), so the port names their
+parameters after the flax tree: the module at ``a.b`` holds the flax scope
+``a/b`` (:func:`_baseline_mapping`). Dense kernels are transposed,
+ConcatDense parts stacked, ``Conv3d`` kernels go from (kD, kH, kW, in, out)
+to (out, in, kD, kH, kW), and a ``ConvTranspose3d`` kernel is flipped in
+its three spatial axes and laid out (in, out, kD, kH, kW): flax's
+``ConvTranspose`` does not flip its kernel, PyTorch's transposed
+convolution (the gradient of a convolution) does. A reference ``.pth`` of a
+baseline is not read, as in the JAX package.
+
 :func:`adamw_state_from_optax` carries the JAX package's AdamW moments
 (``mu``, ``nu`` and the step ``count``) across the same mapping into a
 ``torch.optim.AdamW.state_dict()``, so the port can continue a JAX run.
@@ -28,8 +40,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models import BASELINES
 from ..models.gdanet import BLOCKS as GDANET_BLOCKS
 from ..nn.blocks import _parse_style
+from ..nn.layers import BatchNorm, ConcatDense, Linear
 
 # models whose flax tree keeps the AdaPoinTr core under ``core`` beside
 # their image encoder and / or GDANet (imgadapointr_tpu/models/*_adapointr.py)
@@ -38,6 +52,40 @@ BRANCH_MODELS = {  # name: (image branch, segmentation branch)
     "SegEncAdaPoinTr": (False, True),
     "ImgEncSegDecAdaPoinTrVariableLoss": (True, True),
 }
+
+
+def _baseline_mapping(config) -> list:
+    """The mapping of :func:`_mapping` for a baseline, read off the port's
+    module tree (built on the meta device: no memory, no draws): a module
+    at ``a.b`` takes the flax scope ``a/b``; kinds 'linear', 'concat',
+    'conv3d' and 'deconv3d' for its weights."""
+    with torch.device("meta"):
+        model = BASELINES[config.NAME](config)
+    m: list = []
+    for name, mod in model.named_modules():
+        fp = tuple(name.split("."))
+        if isinstance(mod, Linear):
+            m.append((f"{name}.weight", "linear", fp + ("kernel",), 0))
+        elif isinstance(mod, ConcatDense):
+            parts = tuple(fp + (f"part{i}", "kernel") for i in range(len(mod.widths)))
+            m.append((f"{name}.weight", "concat", parts, 0))
+        elif isinstance(mod, torch.nn.Conv3d):
+            m.append((f"{name}.weight", "conv3d", fp + ("kernel",), 0))
+        elif isinstance(mod, torch.nn.ConvTranspose3d):
+            m.append((f"{name}.weight", "deconv3d", fp + ("kernel",), 0))
+        elif isinstance(mod, BatchNorm):
+            m.append((f"{name}.weight", "param", fp + ("scale",), 0))
+            m.append((f"{name}.bias", "param", fp + ("bias",), 0))
+            m.append((f"{name}.running_mean", "stats", fp + ("mean",), 0))
+            m.append((f"{name}.running_var", "stats", fp + ("var",), 0))
+            m.append((f"{name}.num_batches_tracked", "counter", (), 0))
+            continue
+        else:
+            continue
+        if getattr(mod, "bias", None) is not None:
+            m.append((f"{name}.bias", "param", fp + (("part0", "bias") if isinstance(mod, ConcatDense)
+                                                     else ("bias",)), 0))
+    return m
 
 
 def _mapping(config) -> list:
@@ -49,6 +97,8 @@ def _mapping(config) -> list:
     ``in_proj_weight``), 'cat' (several vectors joined), 'conv' (HWIO ->
     OIHW), 'param', 'stats' (BatchNorm running statistics), 'counter'
     (BatchNorm's ``num_batches_tracked``, which flax does not keep)."""
+    if config.get("NAME") in BASELINES:
+        return _baseline_mapping(config)
     m: list = []
     img, seg = BRANCH_MODELS.get(config.get("NAME"), (False, False))
     core = ("core",) if config.get("NAME") in BRANCH_MODELS else ()
@@ -216,6 +266,21 @@ def _mapping(config) -> list:
     return m
 
 
+def conv3d_weight(kernel: np.ndarray) -> np.ndarray:
+    """A flax ``Conv`` kernel (kD, kH, kW, in, out) as a ``Conv3d`` weight
+    (out, in, kD, kH, kW); both cross-correlate."""
+    return np.transpose(kernel, (4, 3, 0, 1, 2))
+
+
+def conv_transpose3d_weight(kernel: np.ndarray) -> np.ndarray:
+    """A flax ``ConvTranspose`` kernel (kD, kH, kW, in, out), which slides
+    unflipped over the dilated input, as a ``ConvTranspose3d`` weight (in,
+    out, kD, kH, kW), which the transposed convolution flips: flipped in
+    the three spatial axes. With k 4 and stride 2, flax's 'SAME' padding (2
+    on each side of the dilated input) is PyTorch's ``padding=1``."""
+    return np.transpose(kernel[::-1, ::-1, ::-1], (3, 4, 0, 1, 2))
+
+
 def _leaf(tree, path):
     for p in path:
         tree = tree[p]
@@ -238,6 +303,10 @@ def _params_from_flax(params, config) -> dict[str, np.ndarray]:
             out[tkey] = np.concatenate([_leaf(params, p) for p in path], axis=0)
         elif kind == "conv":
             out[tkey] = np.transpose(_leaf(params, path), (3, 2, 0, 1))
+        elif kind == "conv3d":
+            out[tkey] = conv3d_weight(_leaf(params, path))
+        elif kind == "deconv3d":
+            out[tkey] = conv_transpose3d_weight(_leaf(params, path))
         elif kind == "param":
             out[tkey] = _leaf(params, path)
     return out
@@ -245,8 +314,9 @@ def _params_from_flax(params, config) -> dict[str, np.ndarray]:
 
 def state_dict_from_flax(params, batch_stats, config) -> dict[str, torch.Tensor]:
     """flax ``params`` / ``batch_stats`` (nested dicts of numpy arrays) of
-    AdaPoinTr or of a model of :data:`BRANCH_MODELS` (``config.NAME``) ->
-    the port's float32 state dict (reference key layout)."""
+    AdaPoinTr, a model of :data:`BRANCH_MODELS` or a baseline (``models.BASELINES``)
+    (``config.NAME``) -> the port's float32 state dict (reference key
+    layout; the baselines' flax names)."""
     sd = _params_from_flax(params, config)
     out = {}
     for tkey, kind, path, _ in _mapping(config):
@@ -254,11 +324,12 @@ def state_dict_from_flax(params, batch_stats, config) -> dict[str, torch.Tensor]
             sd[tkey] = _leaf(batch_stats, path)
         elif kind == "counter":
             out[tkey] = torch.tensor(0, dtype=torch.int64)
-    # the reference's encoder norm is defined but never applied
-    # (base_blocks.py:429-431): exported as the identity
-    dim = int(config.encoder_config.embed_dim)
-    sd["base_model.encoder.norm.weight"] = np.ones(dim)
-    sd["base_model.encoder.norm.bias"] = np.zeros(dim)
+    if config.get("NAME") not in BASELINES:
+        # the reference's encoder norm is defined but never applied
+        # (base_blocks.py:429-431): exported as the identity
+        dim = int(config.encoder_config.embed_dim)
+        sd["base_model.encoder.norm.weight"] = np.ones(dim)
+        sd["base_model.encoder.norm.bias"] = np.zeros(dim)
     out.update({k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()})
     return out
 
@@ -337,7 +408,7 @@ def fit_reference_state(sd: dict, model: torch.nn.Module) -> dict:
     reference's trailing 1-dims and the entries the port does not keep
     (the reference holds each BatchNorm twice, also under ``convN.1``) are
     left out; every other entry stays as it is, for a strict load."""
-    gdanet = getattr(model.base_model, "segmentator", None)
+    gdanet = getattr(getattr(model, "base_model", None), "segmentator", None)
     if gdanet is None:
         return sd
     prefix = "base_model.segmentator."

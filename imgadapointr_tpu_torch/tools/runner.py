@@ -7,8 +7,8 @@ trains with its own loss (``model.loss``) after the recipe's train
 augmentation (``train_aug``: the ShapeNet-55 crop, the KITTI-finetune
 dropping, or none). ``test`` runs the PCN protocol with the auction EMD
 unless ``--no_emd``, the ShapeNet-55 8-viewpoint crop protocol
-(``--mode``) or the KITTI visualisation. Gradient accumulation and
-multi-GPU wait (ROADMAP Queue 1).
+(``--mode``) or the KITTI visualisation. ``step_per_update: k`` sums k
+batches' gradients into one optimizer update.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from ..ops import fps, mxu_eval_chamfer_active, nn_distance, random_dropping, se
 from ..ops.chamfer import _sqrt_floor
 from ..utils.average_meter import AverageMeter
 from ..utils.checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
-from ..utils.device import resolve_device
+from ..utils.device import deterministic_cudnn, resolve_device
 from ..utils.logger import print_log
 from ..utils.metrics import METRIC_NAMES, Metrics, compute_metrics_per_sample, eval_metric_suite, f_score
 from .builder import ZERO_GRAD_PARAM_MARKERS, build_opt_sched, dataset_builder
@@ -87,7 +87,9 @@ class Runner:
         # the train augmentation's and the denoise jitter's stream, on the model's device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer = None
-        self.step = 0  # optimizer steps taken
+        self.step = 0  # train steps (batches) taken
+        # batches whose gradients one optimizer update sums
+        self.step_per_update = int(config.get("step_per_update", 1))
         n_params = sum(p.numel() for p in self.model.parameters())
         print_log(f"Model {config.model.NAME}: {n_params / 1e6:.2f}M params on {self.device}", logger)
 
@@ -123,41 +125,50 @@ class Runner:
 
     def train_step(self, batch: dict, epoch_f: float, noise: torch.Tensor | None = None,
                    aug: dict | None = None) -> dict:
-        """One optimizer step on ``batch`` (the model's inputs and 'gt'):
-        the recipe's augmentation (:meth:`augment`), forward in train mode
-        with the scheduled BN momentum, the model's own loss at the float
-        epoch ``epoch_f``, backward, clip, AdamW at the scheduled lr.
-        Returns device scalars (no synchronisation): sparse_loss,
-        dense_loss, total_loss, grad_norm (the clip's norm, before the clip,
-        over the parameters with a gradient: a frozen GDANet's flow-through
-        gradients stay out) and the float lr.
+        """One train step on ``batch`` (the model's inputs and 'gt'): the
+        recipe's augmentation (:meth:`augment`), forward in train mode with
+        the scheduled BN momentum, the model's own loss at the float epoch
+        ``epoch_f``, backward, these three on cuDNN's deterministic
+        algorithms (:func:`deterministic_cudnn`). The gradients add up over ``step_per_update``
+        (k) steps, as the reference's k backward passes do; the k-th step
+        clips their sum and takes one optimizer update at the scheduled lr
+        of that update. Returns device scalars (no synchronisation):
+        sparse_loss, dense_loss, total_loss, the float lr of the current
+        update and, on a step that updates, grad_norm (the clip's norm,
+        before the clip, over the parameters with a gradient: a frozen
+        GDANet's flow-through gradients stay out).
 
-        Draws from ``self.generator``, in this order: the augmentation's
+        ``noise`` fixes the model's draws: the denoise jitter's standard
+        normal (AdaPoinTr) or the point sampling's uniform scores (GRNet).
+        Else they come from ``self.generator``, after the augmentation's
         (the crop's (B, 1, 3) normal centre, then its (B, 1) crop sizes; or
-        the dropping's one kept count), then the denoise jitter's standard
-        normal. ``aug`` fixes the augmentation's draws and ``noise`` the
-        jitter's."""
+        the dropping's one kept count); ``aug`` fixes the augmentation's."""
         batch = self.augment(self._to_device(batch), epoch_f, aug)
         self.model.train()
-        lr = self.lr_sched(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.zero_grad(set_to_none=True)
-        ret = self.model(*self._inputs(batch), bn_momentum=self.bnm_sched(epoch_f),
-                         generator=self.generator, noise=noise)
-        sparse, dense = self.model.loss(ret, batch["gt"], epoch_f)
-        total = sparse + dense
-        total.backward()
+        k = self.step_per_update
+        lr = self.lr_sched(self.step // k)
+        if self.step % k == 0:
+            self.optimizer.zero_grad(set_to_none=True)
+        with deterministic_cudnn():  # bit-equal gradients from one state
+            ret = self.model(*self._inputs(batch), bn_momentum=self.bnm_sched(epoch_f),
+                             generator=self.generator, noise=noise)
+            sparse, dense = self.model.loss(ret, batch["gt"], epoch_f)
+            total = sparse + dense
+            total.backward()
         for name, p in self.model.named_parameters():
             if p.grad is not None and any(m in name for m in ZERO_GRAD_PARAM_MARKERS):
                 raise RuntimeError(f"{name} got a gradient: it must stay out of the graph")
-        # torch's rule is the reference's: coef = min(max_norm / (norm + 1e-6), 1)
-        trainable = [p for p in self.model.parameters() if p.requires_grad]
-        grad_norm = torch.nn.utils.clip_grad_norm_(trainable, self.grad_clip)
-        self.optimizer.step()
         self.step += 1
-        return {"sparse_loss": sparse.detach(), "dense_loss": dense.detach(),
-                "total_loss": total.detach(), "grad_norm": grad_norm, "lr": lr}
+        out = {"sparse_loss": sparse.detach(), "dense_loss": dense.detach(),
+               "total_loss": total.detach(), "lr": lr}
+        if self.step % k == 0:
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            # torch's rule is the reference's: coef = min(max_norm / (norm + 1e-6), 1)
+            trainable = [p for p in self.model.parameters() if p.requires_grad]
+            out["grad_norm"] = torch.nn.utils.clip_grad_norm_(trainable, self.grad_clip)
+            self.optimizer.step()
+        return out
 
     # -------------------------------------------------------------- eval steps
     @torch.inference_mode()

@@ -742,3 +742,79 @@ def test_eval_entry_takes_the_mxu_kernel_under_the_flag(dev, monkeypatch):
     assert torch.equal(j1, k1) and torch.equal(j2, k2)
     monkeypatch.delenv("IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER")
     _launched("nn_bidir_argmin", lambda: ops.nn_distance_eval(x, y))
+
+
+# ------------------------------------------------- the PCN baselines' shapes
+
+
+@pytest.mark.parametrize("N,npoint", [(2048, 512), (512, 128), (2304, 512), (16384, 2048), (512, 256)])
+def test_fps_kernel_at_snowflakenets_shapes(dev, N, npoint):
+    """SnowFlakeNet's FPS calls at its batch of 64: the encoder's 2048 ->
+    512 -> 128, the seeds' 2304 -> 512, and its loss's 16384 -> 2048 -> 512
+    -> 256 (16384 points: the route whose per-thread points spill)."""
+    g = torch.Generator().manual_seed(N + npoint)
+    xyz = _sphere(g, 64, N, dev) if N == 16384 else _cloud(g, 64, N, 3, device=dev)
+    got = _launched("fps", lambda: ops.furthest_point_sample(xyz, npoint))
+    assert torch.equal(got, ops.fps_plain(xyz, npoint))
+    assert torch.equal(ops.furthest_point_sample(xyz, npoint), got)
+
+
+@pytest.mark.parametrize("S,M", [(512, 2048), (512, 512), (128, 512), (128, 128), (2048, 2048)])
+def test_knn_kernel_at_snowflakenets_shapes(dev, S, M):
+    """SnowFlakeNet's kNN (k = 16, the point itself included) at batch 64:
+    the set abstractions' groups and the transformers' neighbourhoods."""
+    g = torch.Generator().manual_seed(S * 7 + M)
+    ref = _cloud(g, 64, M, 3, device=dev)
+    q = ref[:, :S].contiguous() if S <= M else _cloud(g, 64, S, 3, device=dev)
+    d, i = _launched("knn", lambda: ops.knn_with_distance(16, ref, q))
+    pd, pi = ops.knn_plain(16, ref, q)
+    assert torch.equal(i, pi) and torch.equal(d, pd)
+    assert torch.equal(i[..., 0], torch.arange(S, device=dev).expand(64, S))  # each point its own nearest
+
+
+@pytest.mark.parametrize("M,C,S", [(512, 64, 8192), (2048, 64, 32768), (512, 128, 2048), (2304, 3, 512),
+                                   (32768, 32, 16384), (4096, 64, 16384), (512, 128, 16384), (264192, 3, 2048)])
+def test_gather_and_scatter_kernels_at_the_baselines_shapes(dev, M, C, S):
+    """The row gather and its backward, the scatter-add, at SnowFlakeNet's
+    (keys, grouped features, the seeds' FPS) and GRNet's (the three cubic
+    samplings' volumes, the point sampling over 2048 + 64³ rows) shapes:
+    equal to the plain version, the scatter bit-equal to the CPU's."""
+    g = torch.Generator().manual_seed(M + C + S)
+    table = _cloud(g, 2, M, C, device=dev)
+    idx = torch.randint(0, M, (2, S), generator=g)
+    got = _launched("gather_rows", lambda: ops.gather_rows(table, idx.to(dev)))
+    assert torch.equal(got, ops.gather_rows_plain(table, idx.to(dev)))
+    vals = torch.randn(2, S, C, generator=g)
+    back = _launched("scatter_add_rows", lambda: ops.scatter_add_rows(M, idx.to(dev), vals.to(dev)))
+    assert torch.equal(back.cpu(), ops.scatter_add_rows_plain(M, idx, vals))
+
+
+def test_gridding_and_cubic_sampling_on_the_card_equal_the_cpu(dev):
+    """GRNet's gridding (its weights scattered at C = 1 into 64³ rows) and
+    cubic feature sampling (a row gather over the volume, then the mask),
+    with their VJPs, twice on the card: the same bits; against the CPU the
+    same bits but for the points' gradient (a sum over the corners)."""
+    from imgadapointr_tpu_torch.ops import gridding
+
+    g = torch.Generator().manual_seed(64)
+    pts = torch.rand(4, 2048, 3, generator=g) * 1.1 - 0.55
+    pts[0, 1500:] = 0.0  # zero-padded rows
+    feats = torch.randn(4, 32, 32, 32, 32, generator=g)
+    w = torch.randn(4, 64, 64, 64, generator=g)
+    out = {}
+    for device in ("cpu", "cuda", "cuda"):
+        p = pts.to(device).clone().requires_grad_(True)
+        f = feats.to(device).clone().requires_grad_(True)
+        grid = gridding.gridding(p, 64)
+        sampled = gridding.cubic_feature_sampling(p * 2.0, f)
+        (grid * w.to(device)).sum().backward()
+        sampled.square().sum().backward()
+        out.setdefault(device, []).append([t.detach().cpu() for t in (grid, sampled, p.grad, f.grad)])
+    (grid, sampled, dp, df), again = out["cuda"]
+    for a, b in zip(out["cuda"][0], again):
+        assert torch.equal(a, b)
+    cpu = out["cpu"][0]
+    assert torch.equal(grid, cpu[0]) and torch.equal(sampled, cpu[1]) and torch.equal(df, cpu[3])
+    # the points' gradient sums each point's 8 corner terms in the reduction's own order
+    torch.testing.assert_close(dp, cpu[2], rtol=1e-5, atol=1e-6)
+    assert float(cpu[0].sum()) > 0

@@ -238,10 +238,24 @@ def test_build_opt_sched_groups_and_limits():
     assert all(p.ndim > 1 for p in decay["params"]) and all(p.ndim <= 1 for p in no_decay["params"])
     assert len(decay["params"]) + len(no_decay["params"]) == len(list(runner.model.parameters()))
     assert lr_step(0) == 5e-4 and lr_step(10) == 5e-4 * 0.9 ** (1 / 21) and bnm(0.0) == 0.9
-    for key, value in (("optimizer", {"type": "SGD", "kwargs": {"lr": 0.1}}), ("step_per_update", 2)):
+    # SGD builds (torch's defaults: no momentum, no decay) over every trainable parameter
+    sgd = cfg_from_yaml_file(TINY)
+    sgd.optimizer = {"type": "SGD", "kwargs": {"lr": 0.1}}
+    opt, lr_sgd, _ = builder.build_opt_sched(sgd, 10, runner.model)
+    assert isinstance(opt, torch.optim.SGD) and len(opt.param_groups) == 1
+    (group,) = opt.param_groups
+    assert group["momentum"] == 0 and group["weight_decay"] == 0 and not group["nesterov"]
+    assert len(group["params"]) == len(list(runner.model.parameters())) and lr_sgd(0) == 0.1
+    # step_per_update: 2 accumulates: 10 batches an epoch are 5 updates, so
+    # update 5 is at epoch 1
+    acc = cfg_from_yaml_file(TINY)
+    acc.step_per_update = 2
+    _, lr_acc, _ = builder.build_opt_sched(acc, 10, runner.model)
+    assert lr_acc(0) == 5e-4 and lr_acc(5) == 5e-4 * 0.9 ** (1 / 21) == lr_step(10)
+    for key, value in (("optimizer", {"type": "RMSprop", "kwargs": {"lr": 0.1}}), ("step_per_update", 0)):
         bad = cfg_from_yaml_file(TINY)
         bad[key] = value
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises((NotImplementedError, ValueError)):
             builder.build_opt_sched(bad, 10, runner.model)
 
 

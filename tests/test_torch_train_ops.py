@@ -420,5 +420,13 @@ def test_schedules_match_jax_over_six_epochs(name):
         schedulers.lambda_lr_factor(1.0, 0.9, 21, 0.02, warmingup_e=4),
         float(jsched.lambda_lr_factor(1.0, 0.9, 21, 0.02, warmingup_e=4)), rtol=1e-7)
     assert schedulers.build_bnm_schedule(None)(3.0) == 0.1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        schedulers.build_lr_schedule(1e-3, cfg_from_yaml_file("cfgs/PCN_models/GRNet.yaml").scheduler, 10)
+    # GRNet.yaml's StepLR (step 50, gamma 0.5) equals JAX's too
+    grnet = "cfgs/PCN_models/GRNet.yaml"
+    with x64():
+        j_step = jsched.build_lr_schedule(1e-3, jax_cfg(grnet).scheduler, 10)
+        step = schedulers.build_lr_schedule(1e-3, cfg_from_yaml_file(grnet).scheduler, 10)
+        for e in (0.0, 49.75, 50.0, 120.5):
+            np.testing.assert_allclose(step(e), float(j_step(jnp.asarray(e))), rtol=1e-14)
+    assert step(49.75) == 1e-3 and step(50.0) == 5e-4 and step(120.5) == 2.5e-4
+    with pytest.raises(NotImplementedError):
+        schedulers.build_lr_schedule(1e-3, type(cfg_from_yaml_file(grnet).scheduler)({"type": "OneCycle", "kwargs": {}}), 10)
