@@ -229,6 +229,39 @@ SnowFlakeNet's widths (C 3, 64, 128) and at GRNet's volumes (32³ x 32, 16³
 x 64, 8³ x 128, the 2048 + 64³ sampled rows) and the gridding's scatter
 at C = 1 into 64³ rows.
 
+10. the entry points on the card (:func:`entry_points_phase`), at full
+   width:
+   a. the serving CLI (``tools/inference.py``) on
+      ``cfgs/PCN_models/AdaPoinTr.yaml`` with seeded weights saved as
+      ``.pth``, over a ``--pc_root`` holding one synthetic partial cloud as
+      ``.npy``, ``.pcd``, ``.ply`` and ``.txt`` (and ``.h5`` where ``h5py``
+      imports): every ``fine.npy`` bit-equal to the model's own forward on
+      the upsampled cloud (``.txt`` within ``TXT_ATOL``; ``np.savetxt``
+      writes 19 digits), the launches those of a request at batch 1 without
+      the metrics, per file; then ``PCReconstructor`` on the same ``.pth``,
+      one request, its table the same;
+   b. ``PCReconstructor`` on the superset
+      (``ImgEncSegDecAdaPoinTrVariableLoss``, seeded weights saved as
+      ``.pth``): a ``.pcd`` cloud, a ``.png`` image (where PIL imports; else
+      ``forward`` on the decoded image array, the same device path) and a
+      class id, 1 warm-up and ``REQUESTS`` requests, each bit-equal to the
+      model's own forward on the same inputs, with the superset's request
+      table at batch 1 without the metrics; the median ms;
+   c. ``main --synthetic --profile`` on the flagship at batch 16 for one
+      epoch of ``PROFILE_STEPS`` steps (the config's ``max_epoch`` cut to 1
+      in a copy) and its validation: a ``torch.profiler`` trace under the
+      run's ``tfboard_path`` whose CUDA kernel events hold every ported
+      kernel of the flagship step (names and counts printed), and the
+      launches of 7 steps and 16 validated clouds;
+   d. ``--worker_mode``: the ShapeNet-55 loader at batch 64 over a tree
+      of 6 batches with 0 workers and with 8 threads and 8 processes: an
+      epoch's batches bit-equal across the three, the host ms a batch of
+      each, and the recipe's train step fed by each beside the same steps
+      on batches in memory (``PERF.md`` §7's question);
+   e. the TensorBoard writers: where ``tensorboardX`` or ``tensorboard``
+      imports, (c)'s event files in ``train/`` and ``test/``; else one line
+      that they are off, as in the JAX package.
+
 Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.
 """
@@ -255,6 +288,8 @@ from imgadapointr_tpu_torch import ops
 from imgadapointr_tpu_torch.datasets import SyntheticPCN
 from imgadapointr_tpu_torch.datasets.loader import base_seed
 from imgadapointr_tpu_torch.datasets.synthetic import _surface_points
+from imgadapointr_tpu_torch.demo import PCReconstructor
+from imgadapointr_tpu_torch.main import main as port_main
 from imgadapointr_tpu_torch.main import swap_synthetic
 from imgadapointr_tpu_torch.models import BASELINES, build_model
 from imgadapointr_tpu_torch.models import gdanet as port_gdanet
@@ -262,6 +297,7 @@ from imgadapointr_tpu_torch.nn.blocks import _parse_style
 from imgadapointr_tpu_torch.ops import _build, chamfer, pointops, sampling
 from imgadapointr_tpu_torch.ops import emd as port_emd
 from imgadapointr_tpu_torch.ops import gridding as port_gridding
+from imgadapointr_tpu_torch.tools import inference as port_inference
 from imgadapointr_tpu_torch.tools import runner as port_runner
 from imgadapointr_tpu_torch.tools.builder import dataset_builder
 from imgadapointr_tpu_torch.utils.checkpoint import load_checkpoint
@@ -407,6 +443,17 @@ NOT_ON_A_PATH = {
         "so no train step's cotangent reaches it (the JAX package's gradient never calls its Pallas VJP "
         "either); the 3-NN interpolation's VJP needs only dfeats",
 }
+# phase 10
+PROFILE_STEPS = 7  # --profile traces steps 1-5 and stops before step 6
+N_CLI_PARTIAL = 1800  # the CLI's cloud: upsampled to 2048
+TXT_ATOL = 1e-6
+LOADER_BATCHES = 6
+LOADER_WORKERS = 8
+CLASS_ID = "03001627"
+CLASSES = {"02691156": 0, CLASS_ID: 3}
+# the CUDA function each kernel of the flagship step launches, as the profiler names it
+STEP_KERNEL_EVENTS = {"knn": "knn_kernel", "fps": "fps_kernel", "gather_rows": "gather_rows",
+                      "nn_bidir_argmin": "nn_bidir_kernel", "scatter_add_rows": "scatter_add_rows"}
 PORTED_KERNEL_NAMES = ("nn_bidir_kernel", "knn_kernel", "knn_merge_kernel", "fps_kernel", "gather_rows",
                        "scatter_add_rows", "nn_one_direction", "weighted_gather_sum",
                        "dfeats_kernel", "dweights_kernel", "auction_top2", "three_nn_interp_kernel",
@@ -2655,7 +2702,7 @@ def check_loader(dataset, dataset_cfg, seed: int) -> dict:
     equal bit for bit; then ``close`` stops the workers.
     (``tests/test_torch_data.py`` holds the loader to the JAX loader over
     two epochs and checks that the workers exit.)"""
-    _, loader = dataset_builder(types.SimpleNamespace(seed=seed, num_workers=2), dataset_cfg)
+    _, loader = dataset_builder(types.SimpleNamespace(seed=seed, num_workers=2, worker_mode="process"), dataset_cfg)
     loader.set_epoch(1)
     order, base, bs = loader.sampler.order(), base_seed(seed, 1), loader.batch_size
     try:
@@ -3329,6 +3376,298 @@ def baselines_phase(seed: int, dev, card: str):
         shutil.rmtree(workdir, ignore_errors=True)
     return counts, summary
 
+# ----------------------------------------------------------- phase 10 path
+
+
+def serving_calls(cfg) -> dict:
+    """The calls of one request of the serving entry points (the CLI,
+    ``PCReconstructor``): :func:`request_calls` without the metrics' pass
+    and its two residual gathers."""
+    calls = dict(request_calls(cfg), scatter_add_rows=[], nn_one_direction=[], nn_bidir_argmin=[])
+    calls["gather_rows"] = calls["gather_rows"][:-2]
+    return calls
+
+
+def save_pth(model, path: str) -> str:
+    torch.save({"base_model": model.state_dict()}, path)
+    return path
+
+
+@torch.inference_mode()
+def own_forward(model, arrays: list, dev) -> np.ndarray:
+    """The dense cloud of the model's own eval forward on ``arrays`` (batch 1)."""
+    model.eval()
+    return model(*[torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays])[-1][0].cpu().numpy()
+
+
+def cli_check(seed: int, dev, workdir: str) -> tuple:
+    """Phase 10 (a): the serving CLI over one cloud in every format, then
+    ``PCReconstructor`` once on the same weights; returns their launch
+    counts and a summary."""
+    cfg = cfg_from_yaml_file(CONFIG).model
+    model = build_model(cfg, device=dev, seed=seed)
+    ckpt = save_pth(model, os.path.join(workdir, "flagship.pth"))
+    cloud = make_requests(cfg, seed + 10, 1, b=1)[0]["partial"][0][:N_CLI_PARTIAL]
+    root = os.path.join(workdir, "clouds")
+    os.makedirs(root)
+    formats = ["npy", "pcd", "ply", "txt"]
+    try:
+        import h5py  # noqa: F401  (IO's .h5 reader)
+
+        formats.append("h5")
+    except ImportError:
+        log("phase 10: h5py does not import here: no .h5 cloud")
+    for ext in formats:
+        IO.put(os.path.join(root, f"cloud_{ext}.{ext}"), cloud)
+    out = os.path.join(workdir, "cli_out")
+    argv = ["--model_config", CONFIG, "--model_checkpoint", ckpt, "--pc_root", root, "--out_pc_root", out,
+            "--device", dev.type]
+    port_inference.main(argv)  # warm-up (cuBLAS handles, caches)
+    single, per_file = port_inference.inference_single, []
+
+    def timed(*a, **kw):  # a file's request: read, upsample, forward, save (ends on the host)
+        t = time.perf_counter()
+        out = single(*a, **kw)
+        per_file.append((a[1], time.perf_counter() - t))
+        return out
+
+    _build.reset_launches()
+    port_inference.inference_single = timed
+    try:
+        t0 = time.perf_counter()
+        port_inference.main(argv)
+        secs = time.perf_counter() - t0
+    finally:
+        port_inference.inference_single = single
+    counts = {"cli": check_launches("the CLI's requests", serving_calls(cfg), len(formats))}
+    up = port_inference.UpSamplePoints({"n_points": N_PARTIAL})(cloud, np.random.default_rng(0))
+    want = own_forward(model, [up[None]], dev)
+    txt_err = None
+    for ext in formats:
+        fine = np.load(os.path.join(out, f"cloud_{ext}", "fine.npy"))
+        require(fine.shape == (int(cfg.num_points), 3) and bool(np.isfinite(fine).all()), f"CLI .{ext}: {fine.shape}")
+        if ext == "txt":
+            txt_err = float(np.abs(fine - want).max())
+            require(txt_err <= TXT_ATOL, f"CLI .txt: {txt_err} from the model's own forward")
+        else:
+            require(np.array_equal(fine, want), f"CLI .{ext}: fine.npy differs from the model's own forward")
+    rec = PCReconstructor(CONFIG, ckpt, device=dev.type)
+    pcd = os.path.join(root, "cloud_pcd.pcd")
+    rec.predict(pcd)  # warm-up
+    _build.reset_launches()
+    got = rec.predict(pcd)
+    counts["reconstructor_flagship"] = check_launches("a flagship PCReconstructor request", serving_calls(cfg), 1)
+    tiled = rec.preprocess_point_cloud(pcd)
+    require(np.array_equal(got, own_forward(model, [tiled], dev)),
+            "PCReconstructor (flagship): differs from the model's own forward")
+    summary = {"formats": formats, "files": len(formats), "cli_main_ms": secs * 1e3,
+               "file_ms": {name: t * 1e3 for name, t in per_file}, "txt_max_abs_err": txt_err,
+               "launches_per_request": {k: v // len(formats) for k, v in counts["cli"].items() if v}}
+    log(f"phase 10: the CLI over {len(formats)} files ({', '.join(formats)}) on the card: every fine.npy "
+        f"equal to the model's own forward (.txt within {txt_err:.3g}); " + json.dumps(summary))
+    del model, rec
+    return counts, summary
+
+
+def reconstructor_check(seed: int, dev, card: str, workdir: str) -> tuple:
+    """Phase 10 (b): ``PCReconstructor`` on the superset, 1 warm-up and
+    ``REQUESTS`` timed requests; returns the launch counts and a summary."""
+    cfg = cfg_from_yaml_file(SUPERSET).model
+    model = build_model(cfg, device=dev, seed=seed)
+    ckpt = save_pth(model, os.path.join(workdir, "superset.pth"))
+    sample = make_requests(cfg, seed + 11, 1, b=1)[0]
+    pcd = os.path.join(workdir, "superset.pcd")
+    IO.put(pcd, sample["partial"][0])
+    rec = PCReconstructor(SUPERSET, ckpt, device=dev.type)
+    require(rec.inputs == ("partial", "img", "cls_vec"), f"the superset takes {rec.inputs}")
+    try:
+        from PIL import Image
+
+        png = os.path.join(workdir, "view.png")
+        Image.fromarray((sample["img"][0] * 255).astype(np.uint8)).save(png)
+        request = lambda: rec.predict(pcd, png, CLASS_ID, CLASSES)  # noqa: E731
+        img, how = rec.load_image(png), "predict with a .png"
+    except ImportError:
+        img, how = sample["img"][:1], "forward on the decoded image array (PIL does not import here)"
+        request = lambda: rec.forward(rec.preprocess_point_cloud(pcd), img,  # noqa: E731
+                                      rec.prepare_cls_vec(CLASSES, CLASS_ID))
+    log(f"phase 10: PCReconstructor on the superset: {how}")
+    want = own_forward(model, [rec.preprocess_point_cloud(pcd), img, rec.prepare_cls_vec(CLASSES, CLASS_ID)], dev)
+    request()  # warm-up
+    _build.reset_launches()
+    secs = []
+    for _ in range(REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = request()
+        secs.append(time.perf_counter() - t0)
+        require(np.array_equal(got, want), "PCReconstructor (superset): differs from the model's own forward")
+    counts = {"reconstructor_superset": check_launches("the superset's PCReconstructor requests",
+                                                       serving_calls(cfg), REQUESTS)}
+    summary = {"how": how, "request_ms": [t * 1e3 for t in secs], "median_request_ms": statistics.median(secs) * 1e3,
+               "launches_per_request": {k: v // REQUESTS for k, v in counts["reconstructor_superset"].items() if v}}
+    log(f"phase 10: PCReconstructor, superset at batch 1: median {summary['median_request_ms']:.2f} ms on {card}; "
+        + json.dumps(summary))
+    del model, rec
+    return counts, summary
+
+
+def trace_kernels(path: str) -> dict:
+    """{kernel name: count} of the CUDA kernel events of a chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def profile_main_check(seed: int, dev, workdir: str) -> tuple:
+    """Phase 10 (c) and (e): ``main --synthetic --profile`` on the flagship
+    for one epoch of ``PROFILE_STEPS`` steps, run from ``workdir`` (which
+    holds a link to ``cfgs/`` and the config copy with ``max_epoch: 1``)."""
+    config = os.path.join(workdir, "profile_cfgs", os.path.basename(CONFIG))
+    os.makedirs(os.path.dirname(config))
+    with open(CONFIG) as f:
+        text = f.read()
+    require(text.count("\nmax_epoch:") == 1, f"{CONFIG}: no max_epoch line to cut")
+    with open(config, "w") as f:
+        f.write("\n".join("max_epoch: 1" if line.startswith("max_epoch:") else line for line in text.split("\n")))
+    cfg = cfg_from_yaml_file(config)
+    require(int(cfg.total_bs) == B_TRAIN and int(cfg.max_epoch) == 1, "the profile config's batch or epochs")
+    os.symlink(os.path.abspath("cfgs"), os.path.join(workdir, "cfgs"))
+    here = os.getcwd()
+    os.chdir(workdir)
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        runner = port_main(["--config", config, "--exp_name", "profile", "--synthetic", "--seed", str(seed),
+                            "--syn_train_len", str(PROFILE_STEPS * B_TRAIN), "--profile", "--device", dev.type])
+        secs = time.perf_counter() - t0
+        n_val = 16  # swap_synthetic's validation split
+        calls = merged(*([train_step_calls(cfg.model)] * PROFILE_STEPS + [eval_calls(cfg.model, "validate")] * n_val))
+        counts = {"profiled_main": check_launches("the profiled main run", calls, 1)}
+        require(runner.step == PROFILE_STEPS, f"main took {runner.step} steps")
+        tb = os.path.abspath(runner.args.tfboard_path)
+        traces = [os.path.join(tb, f) for f in os.listdir(tb) if f.endswith(".pt.trace.json")]
+        require(len(traces) == 1, f"{len(traces)} traces under {tb}")
+        kernels = trace_kernels(traces[0])
+        seen = {k: sum(n for name, n in kernels.items() if ev in name) for k, ev in STEP_KERNEL_EVENTS.items()}
+        log(f"phase 10: --profile wrote {os.path.relpath(traces[0], workdir)} "
+            f"({os.path.getsize(traces[0]) / 2**20:.1f} MiB); the ported kernels' events in it: " + json.dumps(seen))
+        require(all(seen.values()), f"--profile: a ported kernel of the step is missing from the trace: {seen}")
+        train = [k for k in train_step_calls(cfg.model) if train_step_calls(cfg.model)[k]]
+        require(set(train) <= set(STEP_KERNEL_EVENTS), f"kernels of the step without an event name: {train}")
+        writers = {}
+        for part in ("train", "test"):
+            d = os.path.join(tb, part)
+            writers[part] = sorted(f for f in os.listdir(d) if "tfevents" in f) if os.path.isdir(d) else []
+        try:
+            import tensorboardX  # noqa: F401
+            on = True
+        except ImportError:
+            try:
+                import tensorboard  # noqa: F401
+                on = True
+            except ImportError:
+                on = False
+        if on:
+            require(all(writers.values()), f"the TensorBoard writers wrote no event file: {writers}")
+            log(f"phase 10: the writers' event files: {json.dumps(writers)}")
+        else:
+            require(not any(writers.values()), f"event files without a writer: {writers}")
+            log("phase 10: the TensorBoard writers are off: neither tensorboardX nor tensorboard imports here")
+    finally:
+        os.chdir(here)
+    summary = {"main_s": secs, "steps": runner.step, "trace_mib": os.path.getsize(traces[0]) / 2**20,
+               "trace_kernel_events": seen, "writers": on}
+    del runner
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def worker_modes_check(seed: int, root: str, workdir: str, step_ms) -> dict:
+    """Phase 10 (d): the ShapeNet-55 loader at batch ``B_SHAPENET`` over a
+    tree of ``LOADER_BATCHES`` batches, in this process (0 workers) and with
+    ``LOADER_WORKERS`` threads and processes. Epoch 0 starts the workers and
+    warms the recipe's runner; epoch 1 is read alone (host ms a batch: the
+    epoch's time over its batches), and its batches must be bit-equal across
+    the three; epoch 2 feeds the runner's train steps (ms a step, loader
+    included), beside the same steps on batches already in memory."""
+    config = cfg_from_yaml_file(SHAPENET)
+    for split in ("train", "val", "test"):
+        root_paths(config.dataset[split], root)
+    write_shapenet_tree(config.dataset.train, B_SHAPENET * LOADER_BATCHES, 0, seed + 12)
+    config.dataset.train.others.bs = B_SHAPENET
+    runner = port_runner.Runner(recipe_args(seed, workdir), config, logger="silent")
+    runner.make_train_state(LOADER_BATCHES)
+
+    def train_ms(batches) -> float:
+        """ms a train step over ``batches`` (the loader's tuples), loader included."""
+        torch.cuda.synchronize()
+        t0, n = time.perf_counter(), 0
+        for i, (_, _, batch) in enumerate(batches):
+            runner.train_step(batch, 1.0 + i / LOADER_BATCHES)
+            n += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    got, timing = {}, {}
+    for key, workers, mode in (("none", 0, "thread"), ("threads", LOADER_WORKERS, "thread"),
+                               ("processes", LOADER_WORKERS, "process")):
+        args = types.SimpleNamespace(seed=seed, num_workers=workers, worker_mode=mode)
+        _, loader = dataset_builder(args, config.dataset.train)
+        try:
+            loader.set_epoch(0)
+            t0 = time.perf_counter()
+            it = iter(loader)
+            first = next(it)
+            start_ms = (time.perf_counter() - t0) * 1e3
+            train_ms(itertools.chain([first], it))  # warm-up steps
+            loader.set_epoch(1)
+            t0 = time.perf_counter()
+            got[key] = [batch for _, _, batch in loader]
+            epoch_ms = (time.perf_counter() - t0) * 1e3
+            loader.set_epoch(2)
+            step_with_loader = train_ms(loader)
+        finally:
+            loader.close()
+        require(len(got[key]) == LOADER_BATCHES, f"{key}: {len(got[key])} batches")
+        timing[key] = {"first_batch_ms_epoch0": start_ms, "loader_ms_per_batch": epoch_ms / LOADER_BATCHES,
+                       "step_ms_with_loader": step_with_loader}
+    for key in ("threads", "processes"):
+        for b, (x, y) in enumerate(zip(got[key], got["none"])):
+            require(x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x),
+                    f"--worker_mode: batch {b} of the {key} differs from 0 workers'")
+    in_memory = train_ms([(None, None, b) for b in got["none"]])
+    summary = {"batch": B_SHAPENET, "workers": LOADER_WORKERS, "batches": LOADER_BATCHES, "equal": True,
+               **timing, "step_ms_batches_in_memory": in_memory, "phase8_shapenet55_step_ms": step_ms}
+    log("phase 10: the ShapeNet-55 loader, 0 workers, threads and processes: " + json.dumps(summary))
+    del runner
+    torch.cuda.empty_cache()
+    return summary
+
+
+def entry_points_phase(seed: int, dev, card: str, shapenet_step_ms) -> tuple:
+    """Phase 10: the entry points on the card; returns the launch counts of
+    each path and the summary."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    t0 = time.perf_counter()
+    try:
+        counts, cli = cli_check(seed, dev, workdir)
+        more, rec = reconstructor_check(seed, dev, card, workdir)
+        counts.update(more)
+        more, prof = profile_main_check(seed, dev, workdir)
+        counts.update(more)
+        loaders = worker_modes_check(seed, root, workdir, shapenet_step_ms)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return counts, {"cli": cli, "reconstructor_superset": rec, "profile": prof, "worker_modes": loaders}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3516,6 +3855,11 @@ def main(argv=None) -> int:
     baseline_counts, baselines_summary = baselines_phase(args.seed, dev, card)
     counts.update(baseline_counts)
 
+    # ---- phase 10: the entry points (the CLI, PCReconstructor, --profile, --worker_mode, writers)
+    entry_counts, entry_summary = entry_points_phase(args.seed, dev, card,
+                                                     recipes_summary["shapenet55"]["median_step_ms"])
+    counts.update(entry_counts)
+
     kernels = []
     for name in _build.KERNELS:
         err, t, n_ops, nbytes = results[name]
@@ -3542,6 +3886,10 @@ def main(argv=None) -> int:
             "launches_per_kitti_train_step": counts["kitti_train"][name] // TRAIN_STEPS,
             "launches_shapenet55_test_batch": {m: counts[f"shapenet_test_{m}"][name] // (EVAL_CLOUDS // B_VAL)
                                                for m in port_runner.CROP_RATIO},
+            "launches_per_cli_request": counts["cli"][name] // entry_summary["cli"]["files"],
+            "launches_per_reconstructor_request": {
+                "flagship": counts["reconstructor_flagship"][name],
+                "superset": counts["reconstructor_superset"][name] // REQUESTS},
             "launches_baselines": {b: {"request": counts[f"{b}_request"][name] // REQUESTS,
                                        "train_step": counts[f"{b}_train"][name] // BASELINE_STEPS,
                                        "validate": counts[f"{b}_validate"][name], "test": counts[f"{b}_test"][name]}
@@ -3565,7 +3913,8 @@ def main(argv=None) -> int:
                                   "superset_serving": superset_summary,
                                   "superset_training": superset_train_summary,
                                   "deform": deform_summary | {"grouped_deform_gather": grouped_gather},
-                                  "recipes": recipes_summary, "baselines": baselines_summary}))
+                                  "recipes": recipes_summary, "baselines": baselines_summary,
+                                  "entry_points": entry_summary}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

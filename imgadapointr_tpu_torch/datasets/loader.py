@@ -8,8 +8,17 @@ order (``imgadapointr_tpu/datasets/loader.py:114-150``, one host).
   ``np.random.default_rng((base_seed, i))``, ``base_seed = (seed * 7919 +
   epoch) & 0x7FFFFFFF``.
 
-The sampler yields ``(index, base_seed)`` pairs, so a worker process needs
-no epoch of its own: a sample is the same with 0 workers or 8. Workers
+The sampler yields ``(index, base_seed)`` pairs, so a worker needs no
+epoch of its own: a sample is the same with 0 workers or 8, threads or
+processes. Two worker modes, as in the JAX loader
+(``imgadapointr_tpu/datasets/loader.py:9-24``):
+
+- ``thread``: a ``ThreadPoolExecutor`` of ``num_workers`` threads in this
+  process decodes the samples of the next ``PREFETCH`` batches while the
+  current one is used (JAX ``datasets/loader.py:148-156``);
+- ``process``: ``num_workers`` persistent ``DataLoader`` worker processes.
+
+With 0 workers both read in this process. Worker processes
 start from a ``forkserver``, as the JAX loader's process pool does:
 ``fork`` is unsafe in a process that runs threads, and a ``spawn`` worker
 ends through the interpreter's whole shutdown, where a worker stopped with
@@ -20,9 +29,15 @@ A batch is ``(taxonomy_ids, model_ids, {key: stacked tensor})``.
 
 from __future__ import annotations
 
+import collections
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 from torch.utils.data import DataLoader, Dataset, Sampler
+
+WORKER_MODES = ("thread", "process")
+PREFETCH = 2  # batches the thread pool decodes ahead of the one in use
 
 
 def base_seed(seed: int, epoch: int) -> int:
@@ -77,24 +92,69 @@ def collate(samples) -> tuple:
 
 class Loader(DataLoader):
     """The batches of a reader in the JAX loader's order; ``set_epoch``
-    picks the epoch's order and seeds."""
+    picks the epoch's order and seeds. ``worker_mode`` is ``thread`` or
+    ``process`` (see the module docstring)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, drop_last: bool, seed: int = 0,
-                 num_workers: int = 0):
+                 num_workers: int = 0, worker_mode: str = "thread"):
+        if worker_mode not in WORKER_MODES:
+            raise ValueError(f"worker_mode must be thread|process, got {worker_mode!r}")
+        processes = num_workers if worker_mode == "process" else 0
         super().__init__(SeededSamples(dataset), batch_size=batch_size,
                          sampler=EpochOrderSampler(len(dataset), shuffle, seed),
-                         drop_last=drop_last, collate_fn=collate, num_workers=num_workers,
-                         persistent_workers=num_workers > 0,
-                         multiprocessing_context="forkserver" if num_workers > 0 else None)
+                         drop_last=drop_last, collate_fn=collate, num_workers=processes,
+                         persistent_workers=processes > 0,
+                         multiprocessing_context="forkserver" if processes > 0 else None)
+        self.worker_mode = worker_mode
+        self.threads = num_workers if worker_mode == "thread" else 0
+        self._pool = None  # the threads, made at the first epoch
 
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)
 
+    def __iter__(self):
+        if self.threads:
+            return self._thread_batches()
+        return super().__iter__()
+
+    def _thread_batches(self):
+        """The epoch's batches, decoded by the thread pool ``PREFETCH``
+        batches ahead; a sample's exception is raised here, as the worker
+        processes' are."""
+        keys = list(self.sampler)
+        bs = self.batch_size
+        n = len(keys) // bs if self.drop_last else -(-len(keys) // bs)
+        batches = iter([keys[i * bs:(i + 1) * bs] for i in range(n)])
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=self.threads, thread_name_prefix="loader")
+        pending = collections.deque()
+
+        def submit() -> None:
+            batch = next(batches, None)
+            if batch is not None:
+                pending.append([self._pool.submit(self.dataset.__getitem__, k) for k in batch])
+
+        for _ in range(PREFETCH + 1):
+            submit()
+        try:
+            while pending:
+                futures = pending.popleft()
+                submit()
+                yield self.collate_fn([f.result() for f in futures])
+        finally:  # an epoch left early: drop what was queued for it
+            for futures in pending:
+                for f in futures:
+                    f.cancel()
+
     def close(self) -> None:
-        """Stop the persistent worker processes (none with 0 workers).
-        ``DataLoader`` offers no public call for it, so this uses its
-        iterator's ``_shutdown_workers`` and raises if a torch release
-        has renamed either, rather than leave the workers running."""
+        """Stop the workers: the thread pool, or the persistent worker
+        processes (none with 0 workers). ``DataLoader`` offers no public
+        call for the processes, so this uses its iterator's
+        ``_shutdown_workers`` and raises if a torch release has renamed
+        either, rather than leave the workers running."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
         if not hasattr(self, "_iterator"):
             raise RuntimeError("DataLoader has no _iterator: cannot stop its workers")
         it, self._iterator = self._iterator, None

@@ -12,6 +12,10 @@ Counterpart of the JAX package's ``main.py``. Runs on the GPU unless
 ``--device cpu`` is given. The configs' dataset blocks name the readers
 and their trees (``cfgs/dataset_configs/``, paths relative to the working
 directory); ``--synthetic`` swaps every split for ``SyntheticPCN``.
+Training writes TensorBoard scalars under ``args.tfboard_path`` (``train/``
+and ``test/``) through ``tensorboardX`` where it imports, else
+``torch.utils.tensorboard`` where ``tensorboard`` imports, else none, as
+``main.py:86-99`` of the JAX package does.
 """
 
 from __future__ import annotations
@@ -49,6 +53,21 @@ def swap_synthetic(config, train_len: int | None = None) -> None:
             }
 
 
+def make_writers(args) -> tuple:
+    """(train, test) TensorBoard writers under ``args.tfboard_path``, or
+    (None, None) when neither ``tensorboardX`` nor ``tensorboard`` imports."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        try:
+            import tensorboard  # noqa: F401  (torch.utils.tensorboard needs it)
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return None, None
+    return (SummaryWriter(os.path.join(args.tfboard_path, "train")),
+            SummaryWriter(os.path.join(args.tfboard_path, "test")))
+
+
 def main(argv=None):
     args = get_args(argv)
     timestamp = time.strftime("%Y%m%d_%H%M%S", time.localtime())
@@ -72,7 +91,15 @@ def main(argv=None):
 
     if args.test:
         return test_net(args, config)
-    return run_net(args, config)
+    writers = make_writers(args)
+    if writers[0] is None:
+        print_log("TensorBoard writers off: neither tensorboardX nor tensorboard imports", logger)
+    try:
+        return run_net(args, config, writers)
+    finally:
+        for w in writers:
+            if w is not None:
+                w.close()
 
 
 if __name__ == "__main__":

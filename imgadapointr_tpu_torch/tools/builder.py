@@ -29,12 +29,14 @@ def dataset_builder(args, dataset_cfg):
     """(dataset, loader) for one split: the reader ``DATASETS`` registers
     under the config's ``NAME`` and a :class:`Loader` over it in the JAX
     loader's order (``--seed``). The train split is shuffled and drops its
-    ragged last batch; the batch size is ``others.bs``."""
+    ragged last batch; the batch size is ``others.bs``; ``--num_workers``
+    workers of ``--worker_mode`` (threads by default)."""
     dataset = DATASETS.build(dataset_cfg)
     is_train = dataset_cfg.others.subset == "train"
     loader = Loader(dataset, batch_size=int(dataset_cfg.others.get("bs", 1)), shuffle=is_train,
                     drop_last=is_train, seed=int(getattr(args, "seed", 0)),
-                    num_workers=int(getattr(args, "num_workers", 0)))
+                    num_workers=int(getattr(args, "num_workers", 0)),
+                    worker_mode=getattr(args, "worker_mode", "thread"))
     return dataset, loader
 
 

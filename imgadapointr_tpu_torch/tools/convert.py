@@ -26,13 +26,17 @@ its three spatial axes and laid out (in, out, kD, kH, kW): flax's
 convolution (the gradient of a convolution) does. A reference ``.pth`` of a
 baseline is not read, as in the JAX package.
 
-:func:`adamw_state_from_optax` carries the JAX package's AdamW moments
-(``mu``, ``nu`` and the step ``count``) across the same mapping into a
-``torch.optim.AdamW.state_dict()``, so the port can continue a JAX run.
+:func:`optimizer_state_from_optax` carries the optimizer state of a JAX
+train state (the restored ``opt_state`` of the JAX chain, AdamW, Adam or
+SGD, under ``MultiSteps`` or not) across the same mapping into the
+``state_dict()`` of the port's optimizer, so the port can continue a JAX
+run; :func:`adamw_state_from_optax` does it for Adam's moments
+(``mu``, ``nu`` and the step ``count``).
 
 :func:`load_reference_state` reads a reference-layout ``.pth``/``.pt``;
-:func:`load_gdanet_weights` loads a reference GDANet checkpoint into the
-port's GDANet (``--gdanet_w``).
+:func:`load_weights` loads a model's weights from such a file or from a
+JAX ``.ckpt``; :func:`load_gdanet_weights` loads a reference GDANet
+checkpoint into the port's GDANet (``--gdanet_w``).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from ..models import BASELINES
 from ..models.gdanet import BLOCKS as GDANET_BLOCKS
 from ..nn.blocks import _parse_style
 from ..nn.layers import BatchNorm, ConcatDense, Linear
+from ..utils.checkpoint import load_jax_checkpoint, resolve_jax_checkpoint
 
 # models whose flax tree keeps the AdaPoinTr core under ``core`` beside
 # their image encoder and / or GDANet (imgadapointr_tpu/models/*_adapointr.py)
@@ -312,11 +317,11 @@ def _params_from_flax(params, config) -> dict[str, np.ndarray]:
     return out
 
 
-def state_dict_from_flax(params, batch_stats, config) -> dict[str, torch.Tensor]:
+def state_dict_from_flax(params, batch_stats, config, dtype=torch.float32) -> dict[str, torch.Tensor]:
     """flax ``params`` / ``batch_stats`` (nested dicts of numpy arrays) of
     AdaPoinTr, a model of :data:`BRANCH_MODELS` or a baseline (``models.BASELINES``)
-    (``config.NAME``) -> the port's float32 state dict (reference key
-    layout; the baselines' flax names)."""
+    (``config.NAME``) -> the port's state dict in ``dtype`` (float32 by
+    default; reference key layout; the baselines' flax names)."""
     sd = _params_from_flax(params, config)
     out = {}
     for tkey, kind, path, _ in _mapping(config):
@@ -330,7 +335,7 @@ def state_dict_from_flax(params, batch_stats, config) -> dict[str, torch.Tensor]
         dim = int(config.encoder_config.embed_dim)
         sd["base_model.encoder.norm.weight"] = np.ones(dim)
         sd["base_model.encoder.norm.bias"] = np.zeros(dim)
-    out.update({k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()})
+    out.update({k: torch.from_numpy(np.array(v)).to(dtype) for k, v in sd.items()})
     return out
 
 
@@ -348,22 +353,69 @@ def adamw_state_from_optax(mu, nu, count: int, config, model, optimizer) -> dict
     moments in optax) is in no parameter group of the port's AdamW and
     gets none either; nor do the deformable blocks' ``linear_offset`` and
     ``proj_v_off``, which get no gradient (``ZERO_GRAD_PARAM_MARKERS``)."""
+    return _state_from_flax(optimizer, model, config, {"exp_avg": mu, "exp_avg_sq": nu}, step=count)
+
+
+def _find_states(tree, keys: set) -> list:
+    """The sub-dicts of a restored optax state whose keys are ``keys``."""
+    if not isinstance(tree, dict):
+        return []
+    if set(tree) == keys:
+        return [tree]
+    return [found for v in tree.values() for found in _find_states(v, keys)]
+
+
+def optimizer_state_from_optax(opt_state, config, model, optimizer) -> dict:
+    """The ``state_dict()`` of ``optimizer`` (the port's AdamW, Adam or SGD
+    over ``model``) from ``opt_state``, the JAX package's optimizer state
+    restored from a checkpoint (flax's state-dict form: nested dicts, a
+    tuple's entries under ``"0"``, ``"1"``, ...).
+
+    The JAX chain is ``masked(set_to_zero)`` (frozen subtrees only), then
+    the clip, then AdamW, Adam or SGD, all under ``MultiSteps`` when
+    ``step_per_update`` > 1 (``imgadapointr_tpu/tools/builder.py:140-190``).
+    Adam and AdamW keep their moments in the one ``ScaleByAdamState``
+    (``count``, ``mu``, ``nu``), SGD with momentum its ``TraceState``
+    (``trace``: torch's ``momentum_buffer``, the same recursion ``b = m b +
+    g``); SGD without momentum keeps none. The state of ``MultiSteps`` is
+    ``inner_opt_state``; its pending sum of gradients (``acc_grads``) is
+    not carried: the port's checkpoints keep no partial sum either."""
+    inner = opt_state.get("inner_opt_state", opt_state) if isinstance(opt_state, dict) else opt_state
+    if isinstance(optimizer, torch.optim.SGD):
+        traces = _find_states(inner, {"trace"})
+        if not optimizer.defaults["momentum"]:
+            if traces:
+                raise ValueError("the JAX state holds a momentum trace; the port's SGD has no momentum")
+            return {"state": {}, "param_groups": optimizer.state_dict()["param_groups"]}
+        if len(traces) != 1:
+            raise ValueError(f"expected one momentum trace in the JAX SGD state, found {len(traces)}")
+        return _state_from_flax(optimizer, model, config, {"momentum_buffer": traces[0]["trace"]})
+    adams = _find_states(inner, {"count", "mu", "nu"})
+    if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)) or len(adams) != 1:
+        raise ValueError(f"{type(optimizer).__name__}: expected one Adam state in the JAX state, "
+                         f"found {len(adams)}")
+    (adam,) = adams
+    return adamw_state_from_optax(adam["mu"], adam["nu"], int(adam["count"]), config, model, optimizer)
+
+
+def _state_from_flax(optimizer, model, config, trees: dict, step: int | None = None) -> dict:
+    """``optimizer.state_dict()`` with each entry of ``trees`` (a flax
+    params-shaped tree per state name) under the port's parameter names.
+    Parameters without a gradient get no state (see
+    :func:`adamw_state_from_optax`)."""
     from .builder import ZERO_GRAD_PARAM_MARKERS
 
-    exp_avg = _params_from_flax(mu, config)
-    exp_avg_sq = _params_from_flax(nu, config)
+    arrays = {key: _params_from_flax(tree, config) for key, tree in trees.items()}
     names = {id(p): n for n, p in model.named_parameters()}
     state, index = {}, 0
     for group in optimizer.param_groups:
         for p in group["params"]:
             name = names[id(p)]
-            if (p.requires_grad and name in exp_avg
+            if (p.requires_grad and all(name in a for a in arrays.values())
                     and not any(m in name for m in ZERO_GRAD_PARAM_MARKERS)):
-                state[index] = {
-                    "step": torch.tensor(float(count)),
-                    "exp_avg": torch.from_numpy(np.array(exp_avg[name])).to(p),
-                    "exp_avg_sq": torch.from_numpy(np.array(exp_avg_sq[name])).to(p),
-                }
+                state[index] = {} if step is None else {"step": torch.tensor(float(step))}
+                state[index].update({key: torch.from_numpy(np.array(a[name])).to(p)
+                                     for key, a in arrays.items()})
             index += 1
     return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
 
@@ -428,3 +480,26 @@ def load_reference_state(path: str) -> dict[str, torch.Tensor]:
             raw = raw[key]
             break
     return {k.removeprefix("module."): v for k, v in raw.items() if torch.is_tensor(v)}
+
+
+def load_weights(model: torch.nn.Module, path: str, config, experiment_path: str | None = None) -> None:
+    """Load ``model``'s weights (strictly) from ``path``: a reference-layout
+    or port ``.pth`` / ``.pt`` (:func:`load_reference_state`,
+    :func:`fit_reference_state`), else a JAX checkpoint, resolved as the
+    JAX runner resolves ``--start_ckpts`` (a ``.ckpt`` path, a bare prefix,
+    or either inside ``experiment_path``), whose ``params`` and
+    ``batch_stats`` go through :func:`state_dict_from_flax` in the model's
+    dtype. ``config`` is the model config."""
+    if path.endswith((".pth", ".pt")):
+        model.load_state_dict(fit_reference_state(load_reference_state(path), model), strict=True)
+        return
+    tree, _ = load_jax_checkpoint(resolve_jax_checkpoint(path, experiment_path))
+    load_flax_weights(model, tree, config)
+
+
+def load_flax_weights(model: torch.nn.Module, tree: dict, config) -> None:
+    """``tree['params']`` and ``tree['batch_stats']`` (a JAX checkpoint's
+    payload) into ``model``, strictly, in the model's dtype."""
+    dtype = next(model.parameters()).dtype
+    sd = state_dict_from_flax(tree["params"], tree.get("batch_stats") or {}, config, dtype=dtype)
+    model.load_state_dict(sd, strict=True)

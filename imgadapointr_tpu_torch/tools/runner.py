@@ -9,6 +9,18 @@ dropping, or none). ``test`` runs the PCN protocol with the auction EMD
 unless ``--no_emd``, the ShapeNet-55 8-viewpoint crop protocol
 (``--mode``) or the KITTI visualisation. ``step_per_update: k`` sums k
 batches' gradients into one optimizer update.
+
+``--ckpts``, ``--start_ckpts`` and ``--resume`` read the JAX package's
+``.ckpt`` files as well as the port's ``.pth`` (``--resume`` continues a
+JAX run from its ``ckpt-last.ckpt`` when the experiment has no
+``ckpt-last.pth``: weights, BN statistics, optimizer state and step from
+the payload, epoch and best metrics from the sidecar). ``run_net`` also
+takes the JAX runner's ``--profile`` (a ``torch.profiler`` chrome trace
+into ``tfboard_path``, started before step 1 of the first epoch and
+stopped before step 6, as the JAX runner's window), its TensorBoard scalars (the
+writers ``main`` makes), ``--wandb`` and the RSS watchdog
+(``IMGADAPOINTR_RSS_LIMIT_GB``; ``imgadapointr_tpu/tools/runner.py:40-76``,
+``:467-640``).
 """
 
 from __future__ import annotations
@@ -16,6 +28,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import resource
+import sys
 import time
 
 import numpy as np
@@ -25,12 +39,12 @@ from ..models import build_model
 from ..ops import fps, mxu_eval_chamfer_active, nn_distance, random_dropping, separate_point_cloud, train_random_crop
 from ..ops.chamfer import _sqrt_floor
 from ..utils.average_meter import AverageMeter
-from ..utils.checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
+from ..utils.checkpoint import checkpoint_path, load_checkpoint, load_jax_checkpoint, save_checkpoint
 from ..utils.device import deterministic_cudnn, resolve_device
 from ..utils.logger import print_log
 from ..utils.metrics import METRIC_NAMES, Metrics, compute_metrics_per_sample, eval_metric_suite, f_score
 from .builder import ZERO_GRAD_PARAM_MARKERS, build_opt_sched, dataset_builder
-from .convert import fit_reference_state, load_gdanet_weights, load_reference_state
+from .convert import load_flax_weights, load_gdanet_weights, load_weights, optimizer_state_from_optax
 
 SHAPENET_DICT_PATH = os.path.join("cfgs", "shapenet_synset_dict.json")
 EVAL_KEYS = ("sparse_l1", "sparse_l2", "dense_l1", "dense_l2", "f_score")
@@ -42,6 +56,33 @@ SHAPENET55_VIEWPOINTS = [
     (-1, -1, 1), (-1, 1, -1), (1, -1, -1), (-1, -1, -1),
 ]
 CROP_INPUT_POINTS = 2048  # a crop's input to the model, by FPS
+RSS_RESTART_EXIT_CODE = 75  # EX_TEMPFAIL: relaunch with --resume
+PROFILE_WINDOW = (1, 6)  # --profile traces train steps 1-5 of the first epoch, as JAX's (1, 6)
+
+
+def host_rss_gb() -> float:
+    """The process's peak resident set in GB (``ru_maxrss`` is in KiB on Linux)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def rss_limit_gb() -> float:
+    """The RSS watchdog's limit in GB: ``IMGADAPOINTR_RSS_LIMIT_GB`` (0
+    turns it off), else 0.75 of the host's ``MemTotal``, else 0
+    (``imgadapointr_tpu/tools/runner.py:49-76``). At an epoch's end, after
+    ``ckpt-last``, a run whose RSS is above it exits with
+    ``RSS_RESTART_EXIT_CODE`` so that a supervisor relaunches it with
+    ``--resume``."""
+    raw = os.environ.get("IMGADAPOINTR_RSS_LIMIT_GB")
+    if raw is not None:
+        return float(raw)
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemTotal:"):
+                    return 0.75 * int(line.split()[1]) / 1e6
+    except OSError:
+        pass
+    return 0.0
 
 
 def select_train_aug(config) -> tuple[str, int]:
@@ -235,14 +276,37 @@ class Runner:
             self.model, self.optimizer, epoch, self.step,
             metrics.state_dict() if metrics else None,
             best_metrics.state_dict() if best_metrics else None,
-            prefix, self.args.experiment_path, self.logger,
+            prefix, self.args.experiment_path, self.logger, generator=self.generator,
         )
 
     def load_weights(self, path: str) -> None:
-        """Weights only, from a checkpoint of this runner or a
-        reference-layout ``.pth``; optimizer and schedules stay fresh."""
-        sd = fit_reference_state(load_reference_state(path), self.model)
-        self.model.load_state_dict(sd, strict=True)
+        """Weights only, from a checkpoint of this runner, a reference-layout
+        ``.pth`` or a JAX ``.ckpt`` (a path, a bare prefix, or either inside
+        the experiment directory); optimizer and schedules stay fresh."""
+        load_weights(self.model, path, self.config.model, getattr(self.args, "experiment_path", None))
+
+    def resume(self, path: str) -> dict:
+        """Continue from the checkpoint at ``path``: this runner's ``.pth``
+        (weights, optimizer, step and the train draws' generator), or a JAX
+        ``.ckpt`` (weights, BN statistics, optimizer state and step; the
+        JAX run's random stream is not the port's, so the generator stays as
+        seeded). Returns the checkpoint's ``epoch`` and ``best_metrics``."""
+        if path.endswith(".pth"):
+            meta = load_checkpoint(path, self.model, self.optimizer, self.generator)
+            self.step = int(meta["step"])
+            return meta
+        tree, meta = load_jax_checkpoint(path)
+        load_flax_weights(self.model, tree, self.config.model)
+        opt_state = tree.get("opt_state")
+        if opt_state is not None:
+            self.optimizer.load_state_dict(
+                optimizer_state_from_optax(opt_state, self.config.model, self.model, self.optimizer))
+            pending = int(opt_state.get("mini_step", 0)) if isinstance(opt_state, dict) else 0
+            if pending:
+                print_log(f"{path}: the JAX run's sum of {pending} pending batch gradients "
+                          "(MultiSteps) is dropped", self.logger)
+        self.step = int(tree.get("step", 0))
+        return {"epoch": meta.get("epoch", -1), "best_metrics": meta.get("best_metrics")}
 
 
 def load_gdanet(model, path: str, logger=None) -> None:
@@ -258,8 +322,50 @@ def load_gdanet(model, path: str, logger=None) -> None:
 
 
 # ---------------------------------------------------------------------- train
-def run_net(args, config) -> Runner:
+def resume_path(experiment_path: str) -> str | None:
+    """The checkpoint ``--resume`` continues from: the port's
+    ``ckpt-last.pth``, else the JAX run's ``ckpt-last.ckpt``, else None."""
+    for path in (checkpoint_path("ckpt-last", experiment_path),
+                 os.path.join(experiment_path, "ckpt-last.ckpt")):
+        if os.path.exists(path):
+            return path
+    return None
+
+
+def maybe_wandb(args, config):
+    """``--wandb``: one wandb run for the training, or None; without the
+    ``wandb`` package it says so and goes on (``_maybe_wandb`` of
+    ``imgadapointr_tpu/tools/runner.py:626-640``)."""
+    if not getattr(args, "wandb", False):
+        return None
+    try:
+        import wandb
+    except ImportError:
+        print_log("wandb requested but not installed; skipping", getattr(args, "logger", None))
+        return None
+    return wandb.init(project="imgadapointr_tpu", name=getattr(args, "exp_name", "run"), config=dict(config))
+
+
+def _profiler(device: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities)
+
+
+def _stop_profile(prof, path: str, logger) -> None:
+    prof.stop()
+    os.makedirs(path, exist_ok=True)
+    trace = os.path.join(path, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(trace)
+    print_log(f"profiler trace written to {trace}", logger)
+
+
+def run_net(args, config, writers=None) -> Runner:
+    """Train ``config`` with validation and checkpoints. ``writers`` is the
+    (train, validation) pair of TensorBoard writers (either may be None)."""
     logger = getattr(args, "logger", None)
+    train_writer, val_writer = writers or (None, None)
     _, train_loader = dataset_builder(args, config.dataset.train)
     _, val_loader = dataset_builder(args, config.dataset.val)
     runner = Runner(args, config, logger)
@@ -267,14 +373,13 @@ def run_net(args, config) -> Runner:
     runner.make_train_state(steps_per_epoch)
 
     start_epoch, best_metrics = 0, None
-    last = checkpoint_path("ckpt-last", args.experiment_path)
-    if getattr(args, "resume", False) and os.path.exists(last):
-        meta = load_checkpoint(last, runner.model, runner.optimizer)
+    last = resume_path(args.experiment_path) if getattr(args, "resume", False) else None
+    if last:
+        meta = runner.resume(last)
         start_epoch = int(meta["epoch"]) + 1
-        runner.step = int(meta["step"])
         if meta["best_metrics"]:
             best_metrics = Metrics(runner.consider_metric, meta["best_metrics"])
-        print_log(f"Resumed from epoch {start_epoch}", logger)
+        print_log(f"Resumed from epoch {start_epoch} ({os.path.basename(last)})", logger)
     elif getattr(args, "start_ckpts", None):
         runner.load_weights(args.start_ckpts)
         print_log(f"Warm-start weights loaded from {args.start_ckpts} "
@@ -282,6 +387,8 @@ def run_net(args, config) -> Runner:
 
     max_epoch = int(config.max_epoch)
     save_freq = max(1, int(getattr(args, "save_freq", 1) or 1))
+    wandb_run = maybe_wandb(args, config)
+    profiling = None  # the live torch.profiler of --profile
     try:
         for epoch in range(start_epoch, max_epoch):
             # the epoch's order and samples depend on (seed, epoch) only, so a
@@ -292,6 +399,13 @@ def run_net(args, config) -> Runner:
             epoch_start = t0 = time.time()
             n_batches = len(train_loader)
             for idx, (_, _, batch) in enumerate(train_loader):
+                if getattr(args, "profile", False) and epoch == start_epoch:
+                    if idx == PROFILE_WINDOW[0]:
+                        profiling = _profiler(runner.device)
+                        profiling.start()
+                    elif idx == PROFILE_WINDOW[1] and profiling is not None:
+                        _stop_profile(profiling, args.tfboard_path, logger)
+                        profiling = None
                 m = runner.train_step(batch, epoch + idx / steps_per_epoch)
                 step_losses.append(torch.stack([m["sparse_loss"], m["dense_loss"]]))
                 if idx % 100 == 0:  # the only host synchronisation inside an epoch
@@ -303,7 +417,15 @@ def run_net(args, config) -> Runner:
                         f"Losses = {['%.4f' % v for v in losses.val()]} lr = {m['lr']:.6f}",
                         logger,
                     )
+                    if train_writer:
+                        step = epoch * steps_per_epoch + idx
+                        train_writer.add_scalar("Loss/Batch/Sparse", sparse, step)
+                        train_writer.add_scalar("Loss/Batch/Dense", dense, step)
+                        train_writer.add_scalar("LR/Batch", m["lr"], step)
                 t0 = time.time()
+            if profiling is not None:  # an epoch shorter than the window
+                _stop_profile(profiling, args.tfboard_path, logger)
+                profiling = None
             if step_losses:
                 ep = (torch.stack(step_losses).mean(dim=0) * 1000).tolist()
             else:
@@ -312,12 +434,19 @@ def run_net(args, config) -> Runner:
                 f"[Training] EPOCH: {epoch} EpochTime = {time.time() - epoch_start:.3f}s "
                 f"Losses = {['%.4f' % v for v in ep]}", logger,
             )
+            if train_writer:
+                train_writer.add_scalar("Loss/Epoch/Sparse", ep[0], epoch)
+                train_writer.add_scalar("Loss/Epoch/Dense", ep[1], epoch)
+            if wandb_run:
+                wandb_run.log({"epoch": epoch, "train/sparse": ep[0], "train/dense": ep[1]})
 
             # --save_freq: ckpt-best and ckpt-last on every save_freq-th epoch
             # and on the last two (imgadapointr_tpu/tools/runner.py:536-555)
             save_epoch = epoch % save_freq == 0 or epoch >= max_epoch - 2
             if epoch % int(getattr(args, "val_freq", 1)) == 0:
-                metrics = validate(runner, val_loader, epoch, logger)
+                metrics = validate(runner, val_loader, epoch, logger, val_writer)
+                if wandb_run:
+                    wandb_run.log({"epoch": epoch, **{f"val/{k}": v for k, v in metrics.state_dict().items()}})
                 if metrics.better_than(best_metrics):
                     best_metrics = metrics
                     if save_epoch:
@@ -326,7 +455,19 @@ def run_net(args, config) -> Runner:
                 runner.save("ckpt-last", epoch, None, best_metrics)
             if epoch > max_epoch - 2:
                 runner.save(f"ckpt-epoch-{epoch:03d}", epoch, None, best_metrics)
-    finally:  # the loaders' worker processes
+            # the RSS watchdog: an epoch's end with ckpt-last on disk is a
+            # clean point to stop; the exit code asks for a --resume relaunch
+            rss_limit = rss_limit_gb()
+            if rss_limit and epoch < max_epoch - 1 and host_rss_gb() > rss_limit:
+                if not save_epoch:  # so that the resumed run loses nothing
+                    runner.save("ckpt-last", epoch, None, best_metrics)
+                print_log(f"[rss-watchdog] host RSS {host_rss_gb():.1f} GB > limit {rss_limit:.1f} GB "
+                          f"after epoch {epoch}; ckpt-last saved: exiting {RSS_RESTART_EXIT_CODE} "
+                          "for a --resume relaunch", logger)
+                sys.exit(RSS_RESTART_EXIT_CODE)
+    finally:  # the loaders' workers and a trace left open by an exception
+        if profiling is not None:
+            profiling.stop()
         train_loader.close()
         val_loader.close()
     return runner
@@ -345,11 +486,17 @@ def _overall(category_metrics: dict) -> np.ndarray:
     return np.array([am.avg() for am in category_metrics.values()]).mean(axis=0)
 
 
-def validate(runner: Runner, val_loader, epoch: int, logger=None) -> Metrics:
+def validate(runner: Runner, val_loader, epoch: int, logger=None, val_writer=None) -> Metrics:
+    """The validation metrics (mean of the per-category means); with a
+    writer, also the per-sample means of the sparse and dense CD-L1
+    (``Loss/Epoch/*``) and the metrics (``Metric/*``), as JAX's
+    ``validate`` writes them."""
     print_log(f"[VALIDATION] Start validating epoch {epoch}", logger)
     category_metrics: dict[str, AverageMeter] = {}
+    cd_l1 = []  # (sparse, dense) CD-L1 of each sample
     for taxonomy_ids, _, batch in val_loader:
         rows = runner.eval_step(batch)
+        cd_l1.append(rows[:, [0, 2]])
         # [F-Score, CDL1, CDL2, EMD] of the dense cloud; EMD is not validated
         _accumulate(category_metrics, taxonomy_ids,
                     np.concatenate([rows[:, [4, 2, 3]], np.zeros((len(rows), 1))], axis=1))
@@ -357,6 +504,12 @@ def validate(runner: Runner, val_loader, epoch: int, logger=None) -> Metrics:
     print_log("[Validation] EPOCH: %d Metrics = %s" % (epoch, ["%.4f" % v for v in overall]), logger)
     for tax, am in sorted(category_metrics.items()):
         print_log(f"  {tax}: {['%.4f' % v for v in am.avg()]}", logger)
+    if val_writer:
+        sparse, dense = np.concatenate(cd_l1).mean(axis=0) if cd_l1 else (0.0, 0.0)
+        val_writer.add_scalar("Loss/Epoch/Sparse", float(sparse), epoch)
+        val_writer.add_scalar("Loss/Epoch/Dense", float(dense), epoch)
+        for name, v in zip(METRIC_NAMES, overall):
+            val_writer.add_scalar(f"Metric/{name}", float(v), epoch)
     return Metrics(runner.consider_metric, list(overall))
 
 

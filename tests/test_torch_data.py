@@ -294,7 +294,7 @@ def test_loader_matches_jax_over_two_epochs(pcn_root, num_workers):
     """The train split (shuffled, ragged batch dropped) over epochs 0 and 1,
     and the val split (in order), from ``dataset_builder``: JAX's batches,
     in JAX's order, bit for bit; 2 worker processes give the same."""
-    args = type("Args", (), {"seed": 5, "num_workers": num_workers})()
+    args = type("Args", (), {"seed": 5, "num_workers": num_workers, "worker_mode": "process"})()
     for subset, bs in (("train", 2), ("test", 4)):
         cfg = pcn_config(pcn_root, subset, "SegImgPCN")
         cfg.others.bs = bs
