@@ -262,6 +262,46 @@ at C = 1 into 64³ rows.
       imports, (c)'s event files in ``train/`` and ``test/``; else one line
       that they are off, as in the JAX package.
 
+11. the options no shipped config sets (:func:`options_phase`), at full
+   width:
+   a. the options flagship (:func:`options_config`: the flagship's widths
+      with the ``pn`` encoder, the ``fold`` head, 'onebyone' in the
+      encoder and both decoder halves, LayerScale at 1e-5 and dropout,
+      attention dropout and DropPath at ``OPTION_RATE``; 2048 -> 512 +
+      32768 points): 1 warm-up and ``REQUESTS`` requests of ``B`` with
+      their launch table, the peak memory and a profiled request; batch 2
+      against the CPU (clouds equal as sets, share within 1e-4 >= 0.99);
+      1 warm-up and ``TRAIN_STEPS`` steps of ``Runner.train_step`` at
+      ``B_TRAIN`` with their table, every trainable parameter moved, a
+      profiled step; the gradients of one step twice from one state,
+      masks and all, bit-equal (:func:`step_determinism`); every mask of
+      one step within a 6-sigma binomial band of its keep share
+      (:func:`kept_shares`); ``validate`` on ``EVAL_CLOUDS`` clouds (32768
+      against 16384 points) with its table; one step at batch 2 with the
+      rates at 0 against the CPU (loss 1e-4 relative, gradient norm 1e-3);
+   b. :func:`options_deform_config` (``AdaPoinTr-deform`` with 'onebyone',
+      LayerScale and DropPath at 0.1): 1 + ``TRAIN_STEPS`` steps at
+      ``B_TRAIN`` with their table (the grouped 3-NN and ``dfeats`` under
+      the two-branch blocks), every parameter's gradient bit-equal twice;
+   c. the standalone modules at dim 384, 6 heads, batch ``B``
+      (:func:`modules_phase`): the seven legacy blocks (LayerScale at 1) on
+      ``LEGACY_TOKENS`` tokens, the decoder blocks over ``LEGACY_MEMORY``,
+      and ``ImprovedDeformableLocalCrossAttention`` (k 8, n_group 2) on the
+      decoder's cross shapes, forward and backward against the CPU (the
+      loss ``sum(sin(out))`` within 1e-4 relative, the gradients within
+      1e-3 of their norm); ResNet50 and ConvNeXt-small at ``B`` x 224²
+      against the CPU, TF32 off, within ``IMAGE_BAND`` of the output's
+      largest magnitude; ``ball_query`` on lattice clouds (coordinates
+      k/64, every product and sum exact) index-equal to the CPU's;
+   d. one superset forward and backward at ``B_TRAIN`` without and with
+      ``IMGADAPOINTR_ENABLE_SEG_REMAT`` (:func:`remat_check`): the loss
+      bit-equal, every gradient within 1e-6 of its largest entry, and the
+      device busy time and peak memory of each.
+   Phase 2 also holds kNN, FPS, the gather, the bidirectional argmin and
+   the scatter-add at the options flagship's request (``B``) and step
+   (``B_TRAIN``) shapes: the ``pn`` grouper's FPS 2048 -> 256 and k = 32
+   search, the denoise targets at k = 64, the argmin at 32768 x 16384.
+
 Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.
 """
@@ -270,6 +310,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import itertools
 import json
 import os
@@ -292,8 +333,14 @@ from imgadapointr_tpu_torch.demo import PCReconstructor
 from imgadapointr_tpu_torch.main import main as port_main
 from imgadapointr_tpu_torch.main import swap_synthetic
 from imgadapointr_tpu_torch.models import BASELINES, build_model
+from imgadapointr_tpu_torch.models.adapointr import rebuild_factor
 from imgadapointr_tpu_torch.models import gdanet as port_gdanet
+from imgadapointr_tpu_torch.nn import image_encoders as port_image
+from imgadapointr_tpu_torch.nn import layers as port_layers
+from imgadapointr_tpu_torch.nn import legacy_blocks as port_legacy
+from imgadapointr_tpu_torch.nn import local_attention as port_la
 from imgadapointr_tpu_torch.nn.blocks import _parse_style
+from imgadapointr_tpu_torch.nn.layers import init_weights_
 from imgadapointr_tpu_torch.ops import _build, chamfer, pointops, sampling
 from imgadapointr_tpu_torch.ops import emd as port_emd
 from imgadapointr_tpu_torch.ops import gridding as port_gridding
@@ -403,6 +450,7 @@ DEFORM_LISTS = {
     "cross": ["attn-deform", "attn-deform_graph"] + ["attn"] * 6,
 }
 MXU_FLAG = "IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER"
+IMAGE_BAND = 1e-4  # ResNet50 / ConvNeXt card vs CPU: max |diff| over the output's max |value|
 # phase 9: the five PCN baselines, their timed train steps, the k = 2 config
 BASELINE_STEPS = 3
 K2 = "cfgs/PCN_models/AdaPoinTr-tiny-k2.yaml"
@@ -535,6 +583,34 @@ def _two_phase_calls(token, C, g, nq, L, k):
     return knn, rows + [(nq, 3, nq * k), (Q, 3, L * k)], [], [(groups, Q * k, Q, C // groups)]
 
 
+def fine_points(cfg) -> int:
+    """Points of the model's fine cloud: num_query times the rebuild factor
+    (64 under ``decoder_type: fold``, whatever ``num_points`` says)."""
+    return int(cfg.num_query) * rebuild_factor(cfg)
+
+
+def grouper_calls(cfg, train: bool):
+    """(knn, fps, gathers whose table needs no gradient, gathers whose
+    table does) of the grouper over ``N_PARTIAL`` points. DGCNN: four
+    k = 16 searches, FPS 2048 -> n1 -> n2, the edge convolutions' gathers
+    (in train mode layer 1 gathers the raw coordinates and the FPS
+    gathers of the coordinates need none). ``pn``: FPS to n2 centres, their
+    k = 32 nearest input points, both gathers of the input, which needs no
+    gradient."""
+    n1, n2 = (int(n) for n in cfg.center_num)
+    N = N_PARTIAL
+    if cfg.encoder_type == "pn":
+        return [(32, n2, N)], [(N, n2)], [(N, 3, n2), (N, 3, n2 * 32)], []
+    kg = 16
+    knn = [(kg, N, N), (kg, n1, N), (kg, n1, n1), (kg, n2, n1)]
+    fps = [(N, n1), (n1, n2)]
+    if not train:
+        return knn, fps, [(N, 8, N * kg), (N, 3, n1), (N, 32, n1), (N, 32, n1 * kg), (n1, 64, n1 * kg),
+                          (n1, 3, n2), (n1, 64, n2), (n1, 64, n2 * kg)], []
+    return knn, fps, [(N, 3, N * kg), (N, 3, n1), (n1, 3, n2)], [
+        (N, 32, n1), (N, 32, n1 * kg), (n1, 64, n1 * kg), (n1, 64, n2), (n1, 64, n2 * kg)]
+
+
 def request_calls(cfg) -> dict:
     """Each kernel's calls in one eval request plus its metrics, per batch
     element count, from the model config: knn (k, S, M), fps (N, npoint),
@@ -542,23 +618,20 @@ def request_calls(cfg) -> dict:
     (S, K, M, C), three_nn_interpolate (groups, S, M, C; the batch times
     the groups is the kernel's). A segmentation model adds one GDANet pass:
     on the ranked queries (the superset) or on the encoder centres
-    (SegEncAdaPoinTr)."""
+    (SegEncAdaPoinTr). The ``pn`` grouper and the ``fold`` head (64
+    points a query) change the grouper's and the metrics' calls."""
     n1, n2 = (int(n) for n in cfg.center_num)
-    nq, n_fine = int(cfg.num_query), int(cfg.num_points)
+    nq, n_pred, n_gt = int(cfg.num_query), fine_points(cfg), int(cfg.num_points)
     enc, dec = cfg.encoder_config, cfg.decoder_config
-    C, ke, kd, kg = int(enc.embed_dim), int(enc.k), int(dec.k), 16
+    C, ke, kd = int(enc.embed_dim), int(enc.k), int(dec.k)
     g = int(enc.get("n_group", 2))
     n_cand = nq + nq // 2  # coarse_pred queries + FPS seeds, before ranking
     N = N_PARTIAL
-    knn = [(kg, N, N), (kg, n1, N), (kg, n1, n1), (kg, n2, n1),  # grouper
-           (ke, n2, n2),  # encoder, shared by the stack
-           (kd, nq, nq), (kd, nq, n2)]  # decoder self and cross
-    fps = [(N, n1), (n1, n2), (N, nq // 2)]
-    gather = [
-        (N, 8, N * kg), (N, 3, n1), (N, 32, n1), (N, 32, n1 * kg),  # grouper 1-2
-        (n1, 64, n1 * kg), (n1, 3, n2), (n1, 64, n2), (n1, 64, n2 * kg),  # 3-4
-        (N, 3, nq // 2), (n_cand, 3, nq),  # query seeds, ranking
-    ]
+    knn, fps, gather, _ = grouper_calls(cfg, train=False)
+    knn += [(ke, n2, n2),  # encoder, shared by the stack
+            (kd, nq, nq), (kd, nq, n2)]  # decoder self and cross
+    fps += [(N, nq // 2)]
+    gather += [(N, 3, nq // 2), (n_cand, 3, nq)]  # query seeds, ranking
     interp = []
     enc_t, self_t, cross_t = _tokens(cfg)
     for tokens, n_q, n_v, k in ((enc_t, n2, n2, ke), (self_t, nq, nq, kd), (cross_t, nq, n2, kd)):
@@ -566,9 +639,9 @@ def request_calls(cfg) -> dict:
             _, offsets, rows, it = _local_calls(t, C, g, n_q, n_v, k)
             gather += offsets + rows
             interp += it
-    gather += [(n_fine, 3, n_fine)] * 2  # metric residuals, both directions
+    gather += [(n_gt, 3, n_pred), (n_pred, 3, n_gt)]  # metric residuals, both directions
     calls = {"knn": knn, "fps": fps, "gather_rows": gather,
-             "nn_bidir_argmin": [(n_fine, n_fine)], "weighted_gather_sum": [],
+             "nn_bidir_argmin": [(n_pred, n_gt)], "weighted_gather_sum": [],
              "three_nn_interpolate": interp}
     n_seg = {"ImgEncSegDecAdaPoinTrVariableLoss": nq, "SegEncAdaPoinTr": n2}.get(cfg.NAME)
     if n_seg:
@@ -588,17 +661,17 @@ def train_step_calls(cfg) -> dict:
     'rw_deform' block searches its own neighbours over all Q tokens, the
     others the two-phase way."""
     n1, n2 = (int(n) for n in cfg.center_num)
-    nq, n_fine = int(cfg.num_query), int(cfg.num_points)
+    nq, n_pred, n_gt = int(cfg.num_query), fine_points(cfg), int(cfg.num_points)
     enc, dec = cfg.encoder_config, cfg.decoder_config
-    C, ke, kd, kg = int(enc.embed_dim), int(enc.k), int(dec.k), 16
+    C, ke, kd = int(enc.embed_dim), int(enc.k), int(dec.k)
     g = int(enc.get("n_group", 2))
     n_cand, L, Q = nq + nq // 2, DENOISE, nq + DENOISE
-    factor = n_fine // nq
+    factor = n_pred // nq
     N = N_PARTIAL
-    knn = [(kg, N, N), (kg, n1, N), (kg, n1, n1), (kg, n2, n1), (ke, n2, n2), (kd, Q, n2)]
+    knn, fps, gather, grad_gathers = grouper_calls(cfg, train=True)
+    knn += [(ke, n2, n2), (kd, Q, n2)]
     # gathers whose table needs a gradient: their backward is one scatter each
-    grad_gathers = [(N, 32, n1), (N, 32, n1 * kg), (n1, 64, n1 * kg), (n1, 64, n2),
-                    (n1, 64, n2 * kg), (n_cand, 3, nq)]
+    grad_gathers += [(n_cand, 3, nq)]
     other_gathers, interp = [], []
     enc_t, self_t, cross_t = _tokens(cfg)
     blocks = [_local_calls(t, C, g, n2, n2, ke) for t in enc_t if t]
@@ -610,11 +683,10 @@ def train_step_calls(cfg) -> dict:
         other_gathers += offsets
         grad_gathers += rows
         interp += it
-    knn += [(factor, L, n_fine)]  # denoise targets
-    fps = [(N, n1), (n1, n2), (N, nq // 2), (N, L)]
-    chamfer = [(L * factor, L * factor), (nq, n_fine), (n_fine, n_fine)]  # (pred, target)
-    gather = [(N, 3, N * kg), (N, 3, n1), (n1, 3, n2),  # grouper coordinates
-              (N, 3, nq // 2), (N, 3, L), (n_fine, 3, L * factor)]  # seeds, denoise targets
+    knn += [(factor, L, n_gt)]  # denoise targets
+    fps += [(N, nq // 2), (N, L)]
+    chamfer = [(L * factor, L * factor), (nq, n_gt), (n_pred, n_gt)]  # (pred, target)
+    gather += [(N, 3, nq // 2), (N, 3, L), (n_gt, 3, L * factor)]  # seeds, denoise targets
     gather += grad_gathers + other_gathers
     for n_pred, n_gt in chamfer:  # residuals of both directions
         gather += [(n_gt, 3, n_pred), (n_pred, 3, n_gt)]
@@ -654,18 +726,18 @@ def eval_calls(cfg, protocol: str, mxu: bool = False) -> dict:
     (``IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER`` set) the eval suite's pass
     over the fine cloud selects by the matmul-form kernel instead of the
     exact one (the same two residual gathers recompute its distances)."""
-    nq, n_fine = int(cfg.num_query), int(cfg.num_points)
+    nq, n_pred, n_gt = int(cfg.num_query), fine_points(cfg), int(cfg.num_points)
     calls = {k: list(v) for k, v in request_calls(cfg).items()}
     if mxu:
         calls["nn_bidir_mxu"] = calls["nn_bidir_argmin"]
         calls["nn_bidir_argmin"] = []
-    calls["nn_bidir_argmin"].append((nq, n_fine))
-    calls["gather_rows"] += [(n_fine, 3, nq), (nq, 3, n_fine)]
+    calls["nn_bidir_argmin"].append((nq, n_gt))
+    calls["gather_rows"] += [(n_gt, 3, nq), (nq, 3, n_gt)]
     calls.update(scatter_add_rows=[], nn_one_direction=[])
     if protocol == "test":
-        calls["nn_one_direction"] = [(n_fine, n_fine)] * 2
-        calls["gather_rows"] += [(n_fine, 3, n_fine)] * 4
-        calls["nn_bidir_argmin"].append((n_fine, n_fine))
+        calls["nn_one_direction"] = [(n_pred, n_gt), (n_gt, n_pred)]
+        calls["gather_rows"] += [(n_gt, 3, n_pred), (n_pred, 3, n_gt)] * 2
+        calls["nn_bidir_argmin"].append((n_pred, n_gt))
         calls["auction_top2"] = None
     return calls
 
@@ -1846,7 +1918,7 @@ def model_args(model, batch: dict, dev) -> list:
 def serve(model, cfg, batches, dev):
     """Answer each request; returns per-request seconds and the metrics."""
     secs, scores = [], []
-    n_fine, nq = int(cfg.num_points), int(cfg.num_query)
+    n_fine, nq = fine_points(cfg), int(cfg.num_query)
     for batch in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2589,6 +2661,331 @@ def deform_phase(seed: int, dev, card: str, workdir: str):
                "card_vs_cpu_step": {k: step_agree[k] for k in ("total_loss_rel_diff", "grad_norm_rel_diff")},
                "step_determinism": determinism}
     return counts, summary
+
+
+# ------------------------------------------------------------ phase 11 path
+
+
+OPTION_RATE = 0.1
+LEGACY_TOKENS, LEGACY_MEMORY = 512, 256  # the flagship's queries and encoder centres
+
+
+def options_config(rate: float = OPTION_RATE):
+    """The options flagship: ``cfgs/PCN_models/AdaPoinTr.yaml`` with the
+    ``pn`` encoder, the ``fold`` head (64 points a query: 2048 -> 512 +
+    32768), 'onebyone' in the encoder and both decoder halves, LayerScale
+    (``init_values`` 1e-5) and ``rate`` for dropout, attention dropout and
+    DropPath; every width as shipped."""
+    config = cfg_from_yaml_file(CONFIG)
+    m = config.model
+    m.encoder_type, m.decoder_type = "pn", "fold"
+    m.encoder_config.combine_style = "onebyone"
+    m.decoder_config.self_attn_combine_style = m.decoder_config.cross_attn_combine_style = "onebyone"
+    for c in (m.encoder_config, m.decoder_config):
+        c.init_values = 1e-5
+        c.drop_rate = c.attn_drop_rate = c.drop_path_rate = rate
+    return config
+
+
+def options_deform_config():
+    """``deform_config()`` with 'onebyone' everywhere, LayerScale and
+    DropPath at 0.1 (dropout 0): the grouped 3-NN and ``dfeats`` under the
+    two-branch blocks."""
+    config = deform_config()
+    m = config.model
+    m.encoder_config.combine_style = "onebyone"
+    m.decoder_config.self_attn_combine_style = m.decoder_config.cross_attn_combine_style = "onebyone"
+    for c in (m.encoder_config, m.decoder_config):
+        c.init_values, c.drop_path_rate = 1e-5, OPTION_RATE
+    return config
+
+
+def kept_shares(runner, batch, epoch_f: float) -> list:
+    """One train step's dropout and DropPath masks, recorded as the model
+    draws them: each site's (entries, kept share)."""
+    original, seen = port_layers.keep_mask, []
+
+    def record(shape, keep, generator, device):
+        mask = original(shape, keep, generator, device)
+        seen.append((mask.numel(), float(mask.float().mean()), keep))
+        return mask
+
+    port_layers.keep_mask = record
+    try:
+        timed_step(runner, batch, epoch_f)
+    finally:
+        port_layers.keep_mask = original
+    return seen
+
+
+def options_flagship(seed: int, dev, card: str, workdir: str):
+    """Phase 11a: the options flagship's requests, steps, validate, card vs
+    CPU (rates 0), determinism and kept shares (rates 0.1)."""
+    config = options_config()
+    cfg = config.model
+    model = build_model(cfg, device="cuda", seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 11: the options flagship built, {n_params} parameters; {B}x{N_PARTIAL} -> "
+        f"{B}x{fine_points(cfg)} a request")
+    batches = make_requests(cfg, seed, REQUESTS + 1)
+    serve(model, cfg, batches[:1], dev)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    secs, scores = serve(model, cfg, batches[1:], dev)
+    counts = {"options_request": check_launches("the options requests", dict(
+        request_calls(cfg), scatter_add_rows=[], nn_one_direction=[]), REQUESTS)}
+    req_peak = torch.cuda.max_memory_allocated()
+    prof = profile_run(lambda: serve(model, cfg, [batches[1]], dev)[0][0])
+    log(f"phase 11: options requests {[round(t * 1e3, 1) for t in secs]} ms (median "
+        f"{statistics.median(secs) * 1e3:.1f}) on {card}; CD-L1 {[round(s[1], 4) for s in scores]}; peak "
+        f"{req_peak / 2**30:.2f} GiB; launches per request "
+        f"{json.dumps({k: v // REQUESTS for k, v in counts['options_request'].items()})}")
+    log("phase 11: one profiled options request: " + json.dumps(prof))
+    # batch 2 against the CPU at rates 0 (eval ignores them), the ranking layer scaled on both
+    cpu_model = build_model(cfg, device="cpu", seed=seed)
+    for m in (model, cpu_model):
+        with torch.no_grad():
+            m.base_model.query_ranking[4].weight.mul_(1000.0)
+    agree = cpu_agreement(model, cpu_model, {k: v[:2] for k, v in batches[1].items()}, dev)
+    log("phase 11: options request, card vs CPU at batch 2: " + json.dumps(agree))
+    require(min(agree["coarse_matched"], agree["fine_matched"]) >= 0.99,
+            "the options flagship: the card's clouds disagree with the CPU's")
+    del model, cpu_model
+
+    swap_synthetic(config, train_len=B_TRAIN * (TRAIN_STEPS + 3))
+    config.dataset.train.others.bs = B_TRAIN
+    config.dataset.val.LENGTH, config.dataset.val.others.bs = EVAL_CLOUDS, 1
+    args = types.SimpleNamespace(device="cuda", seed=seed, num_workers=0, experiment_path=workdir)
+    _, train_loader = dataset_builder(args, config.dataset.train)
+    _, val_loader = dataset_builder(args, config.dataset.val)
+    runner = port_runner.Runner(args, config, logger="silent")
+    runner.make_train_state(len(train_loader))
+    require(len(runner.model._stochastic) > 0, "the options flagship has no dropout layer")
+    batches = [b for _, _, b in train_loader]
+    before = {n: p.detach().clone() for n, p in runner.model.named_parameters()}
+    train, times, peak = run_train_steps(runner, batches, train_step_calls(cfg),
+                                         "the options train steps", "phase 11")
+    counts["options_train"] = train
+    check_trained(runner.model, before)
+    step_prof = profile_run(lambda: timed_step(runner, batches[1 + TRAIN_STEPS], 0.9)[0])
+    log("phase 11: one profiled options train step: " + json.dumps(step_prof))
+    determinism = step_determinism(runner, batches[1 + TRAIN_STEPS], 0.9, "phase 11", params=True)
+    shares = kept_shares(runner, batches[2 + TRAIN_STEPS], 0.95)
+    bands = [abs(share - keep) / (6 * (keep * (1 - keep) / n) ** 0.5) for n, share, keep in shares]
+    log(f"phase 11: {len(shares)} dropout / DropPath masks in one step; kept shares "
+        f"{min(s for _, s, _ in shares):.4f}-{max(s for _, s, _ in shares):.4f}, the largest distance from "
+        f"0.9 {max(bands):.3f} of its 6-sigma band")
+    require(len(shares) > 0 and max(bands) <= 1.0, "a dropout site's kept share is outside its 6-sigma band")
+    _build.reset_launches()
+    metrics = port_runner.validate(runner, val_loader, 0, "silent")
+    counts["options_validate"] = check_launches("the options validate", eval_calls(cfg, "validate"), EVAL_CLOUDS)
+    require(all(np.isfinite(v) for v in metrics.state_dict().values()), f"validate: {metrics}")
+    log(f"phase 11: validate on {EVAL_CLOUDS} clouds of 32768 against 16384 points: {metrics}")
+    del runner, batches
+    torch.cuda.empty_cache()
+    step_agree = card_vs_cpu_step(options_config(0.0), seed, workdir)
+    log("phase 11: card vs CPU, one options step at batch 2, rates 0: " + json.dumps(step_agree))
+    summary = {"request_batch": B, "request_ms": [t * 1e3 for t in secs],
+               "median_request_ms": statistics.median(secs) * 1e3,
+               "request_peak_gib": req_peak / 2**30,
+               "profiled_request": {k: v for k, v in prof.items() if k != "top"},
+               "card_vs_cpu_request": {k: agree[k] for k in ("coarse_matched", "fine_matched")},
+               "train_batch": B_TRAIN, "step_ms": [t * 1e3 for t in times],
+               "median_step_ms": statistics.median(times) * 1e3,
+               "max_memory_allocated_gib": peak / 2**30,
+               "profiled_step": {k: v for k, v in step_prof.items() if k != "top"},
+               "card_vs_cpu_step": {k: step_agree[k] for k in ("total_loss_rel_diff", "grad_norm_rel_diff")},
+               "step_determinism": determinism, "dropout_sites": len(shares),
+               "kept_share_worst_band": max(bands)}
+    return counts, summary
+
+
+def options_deform(seed: int, dev, workdir: str):
+    """Phase 11b: ``options_deform_config()``'s train steps at B_TRAIN and
+    their determinism."""
+    config = options_deform_config()
+    swap_synthetic(config, train_len=B_TRAIN * (TRAIN_STEPS + 2))
+    config.dataset.train.others.bs = B_TRAIN
+    args = types.SimpleNamespace(device="cuda", seed=seed, num_workers=0, experiment_path=workdir)
+    _, train_loader = dataset_builder(args, config.dataset.train)
+    runner = port_runner.Runner(args, config, logger="silent")
+    runner.make_train_state(len(train_loader))
+    batches = [b for _, _, b in train_loader]
+    before = {n: p.detach().clone() for n, p in runner.model.named_parameters()}
+    train, times, peak = run_train_steps(runner, batches, train_step_calls(config.model),
+                                         "the deformable options train steps", "phase 11")
+    check_trained(runner.model, before, dead=("query_ranking", "encoder.norm", "linear_offset", "proj_v_off"))
+    prof = profile_run(lambda: timed_step(runner, batches[1 + TRAIN_STEPS], 0.9)[0])
+    log("phase 11: one profiled deformable options train step: " + json.dumps(prof))
+    determinism = step_determinism(runner, batches[1 + TRAIN_STEPS], 0.9, "phase 11", params=True)
+    del runner
+    torch.cuda.empty_cache()
+    return {"options_deform_train": train}, {"median_step_ms": statistics.median(times) * 1e3,
+                                             "max_memory_allocated_gib": peak / 2**30,
+                                             "profiled_step": {k: v for k, v in prof.items() if k != "top"},
+                                             "step_determinism": determinism}
+
+
+def card_vs_cpu_module(name: str, module, inputs: list, dev) -> dict:
+    """``module``'s forward and backward (``sum(sin(out))``) on the card
+    against the same module on the CPU, same weights and inputs: the loss
+    within 1e-4 relative and the gradients (inputs and parameters) within
+    1e-3 of their norm, the step's bands."""
+    runs = {}
+    for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        mod = copy.deepcopy(module).to(device)
+        xs = [x.detach().to(device, copy=True).requires_grad_(i % 2 == 0) for i, x in enumerate(inputs)]
+        out = mod(*xs)
+        loss = torch.sin(out).sum()
+        loss.backward()
+        grads = [x.grad for x in xs if x.grad is not None] + [p.grad for p in mod.parameters() if p.grad is not None]
+        runs[key] = (float(loss.detach()), [g.detach().cpu() for g in grads], out.detach().cpu())
+    (lc, gc, oc), (lp, gp, op) = runs["card"], runs["cpu"]
+    norm = sum(float(g.square().sum()) for g in gp) ** 0.5
+    diff = sum(float((a - b).square().sum()) for a, b in zip(gc, gp)) ** 0.5
+    out = {"loss_rel_diff": abs(lc - lp) / abs(lp), "grad_diff_over_norm": diff / norm,
+           "out_max_abs_diff": float((oc - op).abs().max()), "out_max_abs": float(op.abs().max())}
+    require(len(gc) == len(gp) and out["loss_rel_diff"] <= 1e-4 and out["grad_diff_over_norm"] <= 1e-3,
+            f"{name}: card vs CPU {out}")
+    return out
+
+
+def modules_phase(seed: int, dev) -> dict:
+    """Phase 11c: the standalone modules at the flagship's widths (dim 384,
+    6 heads, batch B), card against CPU: the seven legacy blocks on
+    ``LEGACY_TOKENS`` tokens (decoder blocks over ``LEGACY_MEMORY``),
+    ``ImprovedDeformableLocalCrossAttention`` on the decoder's cross shapes
+    (k 8, n_group 2), ResNet50 and ConvNeXt-small on B x 224² images (TF32
+    off; outputs within ``IMAGE_BAND`` of their largest magnitude),
+    ``ball_query`` on lattice clouds (indices equal)."""
+    g = torch.Generator().manual_seed(seed)
+    dim, heads = 384, 6
+    q, v = torch.randn(B, LEGACY_TOKENS, dim, generator=g), torch.randn(B, LEGACY_MEMORY, dim, generator=g)
+    q_pos, v_pos = sphere(g, B, LEGACY_TOKENS, "cpu"), sphere(g, B, LEGACY_MEMORY, "cpu")
+    out = {}
+    for cls in port_legacy.LEGACY_BLOCKS:
+        kw = {} if cls is port_legacy.GraphConvBlock else {"num_heads": heads, "qkv_bias": True}
+        # LayerScale at 1, so that each branch counts in the output in full
+        mod = init_weights_(cls(dim, init_values=1.0, **kw), torch.Generator().manual_seed(seed)).eval()
+        decoder = cls in (port_legacy.DecoderBlock, port_legacy.DeformableAttnDecoderBlock,
+                          port_legacy.GraphConvDecoderBlock)
+        # inputs alternate feature, position: gradients flow into the features
+        args = [q, q_pos, v, v_pos] if decoder else [q, q_pos]
+        out[cls.__name__] = card_vs_cpu_module(cls.__name__, _DecoderCall(mod) if decoder else mod, args, dev)
+    attn = init_weights_(port_la.ImprovedDeformableLocalCrossAttention(dim, heads, True, k=8, n_group=2),
+                         torch.Generator().manual_seed(seed)).eval()
+    out["ImprovedDeformableLocalCrossAttention"] = card_vs_cpu_module(
+        "ImprovedDeformableLocalCrossAttention", _CrossCall(attn), [q, q_pos, v, v_pos], dev)
+    log("phase 11: standalone modules, card vs CPU: " + json.dumps(out))
+    img = torch.rand(B, 224, 224, 3, generator=g)
+    for name, enc in (("ResNet50Encoder", port_image.ResNet50Encoder()),
+                      ("ConvNextEncoder", port_image.ConvNextEncoder())):
+        init_weights_(enc, torch.Generator().manual_seed(seed)).eval()
+        with torch.no_grad():
+            want = enc(img)
+            got = copy.deepcopy(enc).to(dev)(img.to(dev)).cpu()
+        rel = float((got - want).abs().max() / want.abs().max())
+        out[name] = {"shape": list(got.shape), "max_abs_diff_over_max": rel}
+        log(f"phase 11: {name} at {B}x224x224, card vs CPU: {json.dumps(out[name])}")
+        require(rel <= IMAGE_BAND, f"{name}: card vs CPU {rel:.3e} of the output's scale")
+    lat = (torch.randint(-64, 65, (B, N_GT, 3), generator=g) / 64).float()
+    qs = lat[:, :LEGACY_TOKENS].contiguous()
+    want = ops.ball_query(0.1, 32, lat, qs)
+    got = ops.ball_query(0.1, 32, lat.to(dev), qs.to(dev)).cpu()
+    out["ball_query"] = {"queries": B * LEGACY_TOKENS, "points": N_GT, "equal": bool(torch.equal(got, want))}
+    log("phase 11: ball_query on lattice clouds, card vs CPU: " + json.dumps(out["ball_query"]))
+    require(out["ball_query"]["equal"], "ball_query: the card's indices differ from the CPU's")
+    return out
+
+
+class _DecoderCall(torch.nn.Module):
+    """A decoder block called as (q, q_pos, v, v_pos)."""
+
+    def __init__(self, block):
+        super().__init__()
+        self.block = block
+
+    def forward(self, q, q_pos, v, v_pos):
+        return self.block(q, v, q_pos, v_pos)
+
+
+class _CrossCall(_DecoderCall):
+    def forward(self, q, q_pos, v, v_pos):
+        return self.block(q, q_pos, v=v, v_pos=v_pos)
+
+
+def remat_check(seed: int, dev, workdir: str) -> dict:
+    """Phase 11d: one superset train forward and backward at B_TRAIN (no
+    optimizer step) without and with ``IMGADAPOINTR_ENABLE_SEG_REMAT``,
+    from the same state, batch and noise: the loss bit-equal, every
+    parameter's gradient within 1e-6 of its largest entry; the device busy
+    time and the peak memory of each."""
+    config = cfg_from_yaml_file(SUPERSET)
+    swap_synthetic(config, train_len=B_TRAIN)
+    config.dataset.train.others.bs = B_TRAIN
+    args = types.SimpleNamespace(device="cuda", seed=seed, num_workers=0, experiment_path=workdir)
+    _, train_loader = dataset_builder(args, config.dataset.train)
+    runner = port_runner.Runner(args, config, logger="silent")
+    model = runner.model
+    batch = runner._to_device(next(iter(train_loader))[2])
+    noise = torch.randn(B_TRAIN, DENOISE, 3, generator=torch.Generator().manual_seed(seed)).to(dev)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = {}
+    prev = os.environ.get("IMGADAPOINTR_ENABLE_SEG_REMAT")
+    try:
+        for flag in ("0", "1", "0", "1"):  # the second pair is measured
+            os.environ["IMGADAPOINTR_ENABLE_SEG_REMAT"] = flag
+
+            def run():
+                model.load_state_dict(state)
+                model.train().zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with deterministic_cudnn():
+                    loss = sum(model.loss(model(*runner._inputs(batch), bn_momentum=0.1, noise=noise),
+                                          batch["gt"], 0.0))
+                    loss.backward()
+                torch.cuda.synchronize()
+                runs[flag] = (loss.detach().clone(), {n: p.grad.clone() for n, p in model.named_parameters()
+                                                      if p.grad is not None})
+                return time.perf_counter() - t0
+
+            torch.cuda.reset_peak_memory_stats()
+            run()
+            peak = torch.cuda.max_memory_allocated()
+            prof = profile_run(run)
+            runs[flag] = runs[flag] + ({"peak_gib": peak / 2**30, "device_busy_ms": prof.get("device_busy_ms"),
+                                        "wall_ms": prof.get("wall_ms"), "launches": prof.get("launches")},)
+    finally:
+        if prev is None:
+            os.environ.pop("IMGADAPOINTR_ENABLE_SEG_REMAT", None)
+        else:
+            os.environ["IMGADAPOINTR_ENABLE_SEG_REMAT"] = prev
+    (l0, g0, m0), (l1, g1, m1) = runs["0"], runs["1"]
+    worst = max(float((g0[n] - g1[n]).abs().max() / g0[n].abs().max().clamp_min(1e-30)) for n in g0)
+    out = {"loss_equal": bool(torch.equal(l0, l1)), "grad_worst_rel": worst, "off": m0, "on": m1}
+    log("phase 11: the superset's step without and with IMGADAPOINTR_ENABLE_SEG_REMAT: " + json.dumps(out))
+    require(out["loss_equal"] and g0.keys() == g1.keys() and worst <= 1e-6,
+            "the GDANet remat changes the superset's step")
+    del runner, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def options_phase(seed: int, dev, card: str):
+    """Phase 11: the options no shipped config sets (a-d)."""
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        counts, flagship = options_flagship(seed, dev, card, workdir)
+        deform_counts, deform = options_deform(seed, dev, workdir)
+        counts.update(deform_counts)
+        modules = modules_phase(seed, dev)
+        remat = remat_check(seed, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return counts, {"flagship": flagship, "deform": deform, "modules": modules, "remat": remat}
 
 
 # ------------------------------------------------------------ phase 8 path
@@ -3766,6 +4163,12 @@ def main(argv=None) -> int:
     # volumes, sampled rows and gridding scatter at 32, every loss's argmin
     recipe_tables += [(int(bc.total_bs), baseline_calls(bc.model)["train"])
                       for bc in (cfg_from_yaml_file(f"cfgs/PCN_models/{n}.yaml") for n in BASELINES)]
+    # the options flagship (phase 11): the pn grouper's FPS 2048 -> 256, its
+    # k = 32 search and gathers, the fold head's 32768-point clouds against
+    # 16384 (bidirectional argmin, residual gathers, scatters) and the
+    # denoise targets at k = 64, a request at B and a step at B_TRAIN
+    ocfg = options_config().model
+    recipe_tables += [(B, request_calls(ocfg)), (B_TRAIN, train_step_calls(ocfg))]
     for name in ("knn", "fps", "gather_rows", "nn_bidir_argmin", "scatter_add_rows"):
         extra[name] += [(b, c) for b, table in recipe_tables for c in table.get(name) or []]
     g = torch.Generator().manual_seed(args.seed)
@@ -3860,6 +4263,10 @@ def main(argv=None) -> int:
                                                      recipes_summary["shapenet55"]["median_step_ms"])
     counts.update(entry_counts)
 
+    # ---- phase 11: the options no shipped config sets
+    options_counts, options_summary = options_phase(args.seed, dev, card)
+    counts.update(options_counts)
+
     kernels = []
     for name in _build.KERNELS:
         err, t, n_ops, nbytes = results[name]
@@ -3878,6 +4285,10 @@ def main(argv=None) -> int:
             "launches_per_superset_train_step": counts["superset_train"][name] // TRAIN_STEPS,
             "launches_per_deform_request": counts["deform_request"][name] // REQUESTS,
             "launches_per_deform_train_step": counts["deform_train"][name] // TRAIN_STEPS,
+            "launches_per_options_request": counts["options_request"][name] // REQUESTS,
+            "launches_per_options_train_step": counts["options_train"][name] // TRAIN_STEPS,
+            "launches_options_validate": counts["options_validate"][name],
+            "launches_per_options_deform_train_step": counts["options_deform_train"][name] // TRAIN_STEPS,
             "launches_validate": counts["validate"][name], "launches_test": counts["test"][name],
             "launches_validate_mxu": counts["validate_mxu"][name],
             "launches_test_mxu": counts["test_mxu"][name],
@@ -3914,7 +4325,7 @@ def main(argv=None) -> int:
                                   "superset_training": superset_train_summary,
                                   "deform": deform_summary | {"grouped_deform_gather": grouped_gather},
                                   "recipes": recipes_summary, "baselines": baselines_summary,
-                                  "entry_points": entry_summary}))
+                                  "entry_points": entry_summary, "options": options_summary}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,11 +1,15 @@
 """AdaPoinTr, the flagship completion model.
 
-Counterpart of ``imgadapointr_tpu/models/adapointr.py:35-116`` for
-``decoder_type: fc``: PCTransformer core, ``increase_dim`` (1x1 conv -> BN
--> LeakyReLU -> 1x1 conv, then a max), ``reduce_map`` over cat(global,
-token, coarse), the FC rebuild head, and ``rebuild_points + coarse``.
-In eval mode it returns ``(coarse (B, num_query, 3), fine (B, num_points,
-3))``; in train mode ``(pred_coarse, denoised_coarse, denoised_fine,
+Counterpart of ``imgadapointr_tpu/models/adapointr.py:35-116``:
+PCTransformer core, ``increase_dim`` (1x1 conv -> BN -> LeakyReLU -> 1x1
+conv, then a max), ``reduce_map`` over cat(global, token, coarse), the
+rebuild head (``decoder_type: fc``, or ``fold``: the folding head over each
+token, 64 points a query whatever ``num_points`` says), and
+``rebuild_points + coarse``. In train mode every dropout and DropPath layer
+draws its masks from the forward's ``generator``, after the denoise
+jitter's draw.
+In eval mode it returns ``(coarse (B, num_query, 3), fine (B, num_query *
+factor, 3))``; in train mode ``(pred_coarse, denoised_coarse, denoised_fine,
 pred_fine)``, the last ``DENOISE_LENGTH`` queries being the denoise task's.
 """
 
@@ -14,19 +18,24 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..nn.heads import SimpleRebuildFCLayer
-from ..nn.layers import BatchNorm, ConcatDense, Linear, init_weights_
+from ..nn.heads import Fold, SimpleRebuildFCLayer
+from ..nn.layers import (BatchNorm, ConcatDense, Linear, init_weights_, set_dropout_generator,
+                         stochastic_layers)
 from ..utils.device import resolve_device
 from ..utils.registry import MODELS
 from .losses import adapointr_loss, variable_alpha
 from .pctransformer import PCTransformer
 
 
+FOLD_STEP = 8  # reference AdaPoinTr.py:167
+
+
 def rebuild_factor(config) -> int:
-    """Points rebuilt per query token (reference AdaPoinTr.py:170-180)."""
+    """Points rebuilt per query token (reference AdaPoinTr.py:170-180):
+    FOLD_STEP² under ``decoder_type: fold``, else ``num_points / num_query``."""
     num_points = config.get("num_points", None)
-    if num_points is None:
-        return 64
+    if config.decoder_type == "fold" or num_points is None:
+        return FOLD_STEP**2
     if num_points % config.num_query:
         raise ValueError("num_points must be a multiple of num_query")
     return num_points // config.num_query
@@ -40,10 +49,8 @@ class AdaPoinTr(nn.Module):
 
     def __init__(self, config):
         super().__init__()
-        if config.decoder_type != "fc":
-            raise NotImplementedError(
-                f"decoder_type {config.decoder_type!r}: only 'fc' (the flagship's) is ported"
-            )
+        if config.decoder_type not in ("fc", "fold"):
+            raise ValueError(f"decoder_type {config.decoder_type!r}: 'fc' or 'fold'")
         trans_dim = int(config.decoder_config.embed_dim)
         self.base_model = PCTransformer(config)
         # reference Sequential(Conv1d(C, 1024, 1), BatchNorm1d(1024), LeakyReLU(0.2), Conv1d(1024, 1024, 1))
@@ -53,7 +60,12 @@ class AdaPoinTr(nn.Module):
         )
         self.reduce_map = ConcatDense((1024, trans_dim, 3), trans_dim)
         self.factor = rebuild_factor(config)
-        self.decode_head = SimpleRebuildFCLayer(trans_dim * 2, step=self.factor)
+        self.decode_head = (Fold(trans_dim, step=FOLD_STEP, hidden_dim=256)
+                            if config.decoder_type == "fold"
+                            else SimpleRebuildFCLayer(trans_dim * 2, step=self.factor))
+        # every BatchNorm takes the call's momentum (GDANet's stay in eval mode)
+        self._batchnorms = tuple(m for m in self.modules() if isinstance(m, BatchNorm))
+        self._stochastic = stochastic_layers(self)
 
     def forward(self, xyz: torch.Tensor, bn_momentum: float = 0.1,
                 generator: torch.Generator | None = None,
@@ -61,17 +73,25 @@ class AdaPoinTr(nn.Module):
                 seg_fn=None, cls_vec: torch.Tensor | None = None):
         """``bn_momentum`` is the torch-style BatchNorm momentum of this call
         (the BN-momentum schedule's value); ``generator`` / ``noise`` feed
-        the denoise jitter (see :class:`PCTransformer`). All three matter
-        in train mode only. ``img_feat``, ``seg_fn`` and ``cls_vec`` feed
-        the image and segmentation branches of the models built on this
-        one (``models/img_adapointr.py``, ``models/seg_adapointr.py``)."""
-        self.increase_dim[1].momentum = bn_momentum
+        the denoise jitter (see :class:`PCTransformer`), then the dropout
+        and DropPath masks. All three matter in train mode only.
+        ``img_feat``, ``seg_fn`` and ``cls_vec`` feed the image and
+        segmentation branches of the models built on this one
+        (``models/img_adapointr.py``, ``models/seg_adapointr.py``)."""
+        for bn in self._batchnorms:
+            bn.momentum = bn_momentum
+        set_dropout_generator(self._stochastic, generator)
         q, coarse, L = self.base_model(xyz, img_feat=img_feat, seg_fn=seg_fn, cls_vec=cls_vec,
                                        generator=generator, noise=noise)
         B = q.shape[0]
         global_feature = self.increase_dim(q).amax(dim=1)  # (B, 1024)
         rf = self.reduce_map(global_feature[:, None], q, coarse)
-        rebuild = self.decode_head(rf) + coarse[:, :, None]  # (B, M, S, 3)
+        if isinstance(self.decode_head, Fold):
+            M, C = rf.shape[1:]
+            relative = self.decode_head(rf.reshape(B * M, C)).reshape(B, M, self.factor, 3)
+        else:
+            relative = self.decode_head(rf)
+        rebuild = relative + coarse[:, :, None]  # (B, M, S, 3)
         if not self.training:
             return coarse, rebuild.reshape(B, -1, 3)
         pred_fine = rebuild[:, :-L].reshape(B, -1, 3)

@@ -1,9 +1,10 @@
 """PCTransformer, the AdaPoinTr encoder/decoder core, point branch.
 
 Counterpart of ``imgadapointr_tpu/models/pctransformer.py:32-153``:
-grouper -> positional embedding + input projection -> encoder -> global
-feature -> coarse prediction + FPS query candidates -> query ranking
-(top num_query) -> mlp_query -> decoder. In train mode ``DENOISE_LENGTH``
+grouper (DGCNN for ``encoder_type: graph``, the per-group PointNet of
+``nn/grouper.py:SimpleEncoder`` for ``pn``) -> positional embedding +
+input projection -> encoder -> global feature -> coarse prediction + FPS
+query candidates -> query ranking (top num_query) -> mlp_query -> decoder. In train mode ``DENOISE_LENGTH``
 jittered FPS points of the input are appended to the ranked queries as
 denoise queries.
 
@@ -28,7 +29,7 @@ from torch import nn
 
 from .. import ops
 from ..nn.blocks import decoder_from_config, encoder_from_config
-from ..nn.grouper import DGCNNGrouper
+from ..nn.grouper import DGCNNGrouper, SimpleEncoder
 from ..nn.image_encoders import ResNet18Encoder
 from ..nn.layers import ConcatDense, Linear
 from .fusion import SEG_FEATURES, AttentionFusion, image_tokens_width
@@ -46,15 +47,16 @@ def _mlp2(a: int, b: int, c: int) -> nn.Sequential:
 class PCTransformer(nn.Module):
     def __init__(self, config):
         super().__init__()
-        if config.encoder_type != "graph":
-            raise NotImplementedError(f"encoder_type {config.encoder_type!r}: only 'graph' is ported")
+        if config.encoder_type not in ("graph", "pn"):
+            raise ValueError(f"encoder_type {config.encoder_type!r}: 'graph' or 'pn'")
         enc, dec = config.encoder_config, config.decoder_config
         C, D = int(enc.embed_dim), int(dec.embed_dim)
         gfd = int(config.global_feature_dim)
         self.center_num = tuple(int(n) for n in config.get("center_num", (512, 128)))
         self.num_query = int(config.num_query)
 
-        self.grouper = DGCNNGrouper(k=16)
+        self.grouper = (DGCNNGrouper(k=16) if config.encoder_type == "graph"
+                        else SimpleEncoder(k=32, embed_dims=512))
         self.pos_embed = _mlp2(3, 128, C)
         self.input_proj = _mlp2(self.grouper.num_features, 512, C)
         self.encoder = encoder_from_config(enc)
@@ -91,10 +93,15 @@ class PCTransformer(nn.Module):
         """(q, coarse, denoise_length). ``img_feat`` (B, 256, positions) are
         the image tokens, ``seg_fn(points, cls_vec)`` gives GDANet's
         (B, n, 128) features of n points; each is needed only when its
-        branch is on. ``generator`` draws the denoise jitter in train mode;
-        ``noise`` (B, DENOISE_LENGTH, 3), standard normal, replaces the
-        draw."""
+        branch is on. ``generator`` draws the denoise jitter in train mode,
+        before anything else draws; ``noise`` (B, DENOISE_LENGTH, 3),
+        standard normal, replaces the draw."""
         B = xyz.shape[0]
+        if self.training and noise is None:
+            # the denoise jitter's draw comes first, then any dropout masks
+            # in module order (jitter_points would draw the same tensor)
+            noise = torch.randn((B, DENOISE_LENGTH, 3), generator=generator, dtype=xyz.dtype,
+                                device=xyz.device)
         coor, f = self.grouper(xyz, self.center_num)
         x = self.encoder(self.input_proj(f) + self.pos_embed(coor), coor)
         if self.img_fusion is not None:

@@ -10,9 +10,16 @@ Counterpart of ``imgadapointr_tpu/models/seg_adapointr.py:33-177``:
 
 GDANet takes the points, their normals (k = 30) and the class one-hot. It
 is frozen (``models/gdanet.py``); in train mode its SGCAMs take the
-commuted product. ``SegEncAdaPoinTr`` trains with AdaPoinTr's loss, the
-superset with the variable coarse loss (``seg_adapointr.py:156``,
-``:172-174`` there).
+commuted product. With ``IMGADAPOINTR_ENABLE_SEG_REMAT`` set (opt-in, train
+mode only; ``imgadapointr_tpu/models/seg_adapointr.py:64-106``) the
+flow-through (normals, then GDANet) runs under
+``torch.utils.checkpoint``: its activations are not kept for the backward
+but recomputed there from the same points, which select the same
+neighbours (every selection is deterministic on one input), so the loss
+is bit-equal and the gradients agree to float32 rounding; a memory lever,
+at the price of a second GDANet forward. ``SegEncAdaPoinTr`` trains with
+AdaPoinTr's loss, the superset with the variable coarse loss
+(``seg_adapointr.py:156``, ``:172-174`` there).
 """
 
 from __future__ import annotations
@@ -20,8 +27,10 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import estimate_pointcloud_normals
+from ..utils.envflags import env_flag
 from ..utils.registry import MODELS
 from .adapointr import AdaPoinTr, place
 from .gdanet import GDANet
@@ -44,12 +53,25 @@ def _scrambled_normals(coor: torch.Tensor) -> torch.Tensor:
 
 
 def seg_features(gdanet: GDANet, coor: torch.Tensor, cls_vec: torch.Tensor,
-                 commute: bool = False) -> torch.Tensor:
+                 commute: bool = False, remat: bool = False) -> torch.Tensor:
     """GDANet's (B, n, 128) feature tap for the points ``coor`` (B, n, 3);
-    ``commute`` selects the SGCAMs' train-mode product."""
+    ``commute`` selects the SGCAMs' train-mode product, ``remat`` recomputes
+    the pass in the backward instead of keeping its activations."""
+
+    def body(points, cls):
+        feat, _ = gdanet(points, _scrambled_normals(points), cls, commute=commute)
+        return feat
+
     coor = coor.contiguous()
-    feat, _ = gdanet(coor, _scrambled_normals(coor), cls_vec, commute=commute)
-    return feat
+    if remat:
+        return checkpoint(body, coor, cls_vec, use_reentrant=False)
+    return body(coor, cls_vec)
+
+
+def _seg_fn(model):
+    """The model's GDANet feature function for this call's mode."""
+    return functools.partial(seg_features, model.base_model.segmentator, commute=model.training,
+                             remat=model.training and env_flag("IMGADAPOINTR_ENABLE_SEG_REMAT"))
 
 
 class SegEncAdaPoinTr(AdaPoinTr):
@@ -60,9 +82,8 @@ class SegEncAdaPoinTr(AdaPoinTr):
     def forward(self, xyz: torch.Tensor, cls_vec: torch.Tensor, bn_momentum: float = 0.1,
                 generator: torch.Generator | None = None, noise: torch.Tensor | None = None):
         """``bn_momentum``, ``generator`` and ``noise`` as in :meth:`AdaPoinTr.forward`."""
-        seg_fn = functools.partial(seg_features, self.base_model.segmentator, commute=self.training)
         return super().forward(xyz, bn_momentum=bn_momentum, generator=generator, noise=noise,
-                               seg_fn=seg_fn, cls_vec=cls_vec)
+                               seg_fn=_seg_fn(self), cls_vec=cls_vec)
 
 
 class ImgEncSegDecAdaPoinTr(AdaPoinTr):
@@ -77,10 +98,9 @@ class ImgEncSegDecAdaPoinTr(AdaPoinTr):
                 noise: torch.Tensor | None = None):
         """``bn_momentum``, ``generator`` and ``noise`` as in
         :meth:`AdaPoinTr.forward`; the momentum reaches the ResNet too."""
-        seg_fn = functools.partial(seg_features, self.base_model.segmentator, commute=self.training)
         return super().forward(xyz, bn_momentum=bn_momentum, generator=generator, noise=noise,
                                img_feat=self.base_model.im_encoder(img, bn_momentum),
-                               seg_fn=seg_fn, cls_vec=cls_vec)
+                               seg_fn=_seg_fn(self), cls_vec=cls_vec)
 
 
 @MODELS.register_module(name="SegEncAdaPoinTr")

@@ -1,4 +1,7 @@
-"""DGCNN grouper (counterpart of ``imgadapointr_tpu/nn/grouper.py:22-89``).
+"""The point front ends: the DGCNN grouper (``encoder_type: graph``) and
+the per-group PointNet of ``encoder_type: pn``.
+
+``DGCNNGrouper`` (counterpart of ``imgadapointr_tpu/nn/grouper.py:22-89``):
 
 Four edge convolutions (1x1 conv, GroupNorm(4, eps 1e-5), LeakyReLU(0.2),
 max over k = 16 neighbours) and two FPS downsamples. Input (B, N, 3);
@@ -7,6 +10,14 @@ output (coor (B, num[-1], 3), feat (B, num[-1], 128)). In train mode layer
 (``grouper.py:59-74``): equal in value to the eval form, and the gathered
 table needs no gradient, so no (B, N, k, 8) -> (B, N, 8) scatter-add runs
 in the backward.
+
+``SimpleEncoder`` (``imgadapointr_tpu/nn/grouper.py:96-145``, reference
+base_blocks.py:632-698): FPS to ``center_num[-1]`` centres, their k = 32
+nearest input points, and a per-group PointNet (``embedding``, the
+reference's ``PCNEncoder``: ``first_conv`` 3 -> 128 -> BN -> ReLU -> 256,
+max, ``second_conv`` over cat(max, feature) 512 -> BN -> ReLU -> C, max).
+Its BatchNorms take the call's scheduled momentum and the two-pass batch
+variance (``nn/layers.py:BatchNorm``).
 """
 
 from __future__ import annotations
@@ -16,8 +27,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops import furthest_point_sample, index_points, knn_point
-from .layers import GroupNorm, Linear
+from ..ops import fps, furthest_point_sample, index_points, knn_point
+from .layers import BatchNorm, ConcatDense, GroupNorm, Linear
 
 
 def _edge_layer(in_ch: int, out_ch: int) -> nn.Sequential:
@@ -70,3 +81,44 @@ class DGCNNGrouper(nn.Module):
         coor_q, f_q = self._fps_downsample(coor, f, num[1])
         f = self.layer4(self._graph_feature(coor_q, f_q, coor, f)).amax(dim=2)
         return coor_q, f
+
+
+class PCNEncoder(nn.Module):
+    """Per-group PointNet: (B, G, N, 3) point groups -> (B, G, C)."""
+
+    def __init__(self, encoder_channel: int):
+        super().__init__()
+        self.encoder_channel = encoder_channel
+        # reference Sequential(Conv1d(3, 128, 1), BatchNorm1d(128), ReLU, Conv1d(128, 256, 1))
+        self.first_conv = nn.Sequential(Linear(3, 128, kernel_dims=1), BatchNorm(128), nn.ReLU(),
+                                        Linear(128, 256, kernel_dims=1))
+        # reference Conv1d(512, 512, 1) over cat(global, feature): the global
+        # part is contracted once per group, before it is broadcast
+        self.second_conv = nn.Sequential(ConcatDense((256, 256), 512, kernel_dims=1), BatchNorm(512),
+                                         nn.ReLU(), Linear(512, encoder_channel, kernel_dims=1))
+
+    def forward(self, point_groups: torch.Tensor) -> torch.Tensor:
+        B, G, N, _ = point_groups.shape
+        f = self.first_conv(point_groups.reshape(B * G, N, 3))  # (BG, N, 256)
+        f = self.second_conv[0](f.amax(dim=1, keepdim=True), f)
+        f = self.second_conv[1:](f).amax(dim=1)  # (BG, C)
+        return f.reshape(B, G, self.encoder_channel)
+
+
+class SimpleEncoder(nn.Module):
+    """``encoder_type: pn``: FPS centres, their k nearest points, and
+    :class:`PCNEncoder` over each group. Input (B, N, 3); output (centres
+    (B, G, 3), features (B, G, embed_dims))."""
+
+    def __init__(self, k: int = 32, embed_dims: int = 128):
+        super().__init__()
+        self.k = k
+        self.num_features = embed_dims
+        self.embedding = PCNEncoder(embed_dims)
+
+    def forward(self, xyz: torch.Tensor, n_group) -> tuple:
+        if isinstance(n_group, (list, tuple)):
+            n_group = n_group[-1]
+        center = fps(xyz, n_group)
+        neighborhood = index_points(xyz, knn_point(self.k, xyz, center))  # (B, G, k, 3)
+        return center, self.embedding(neighborhood)

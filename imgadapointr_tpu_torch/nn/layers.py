@@ -3,11 +3,12 @@
 Counterparts of ``imgadapointr_tpu/nn/layers.py``. Parameters carry the
 reference torch state-dict names and shapes, so reference checkpoints and
 :func:`tools.convert.state_dict_from_flax` load with a plain
-``load_state_dict``. Dropout and stochastic depth have no parameters and
-their rates are 0 in every shipped AdaPoinTr config, so they are not
-instantiated (the blocks raise on a non-zero rate); LayerScale appears
-only with ``init_values``, which no shipped config sets (the blocks raise
-on it).
+``load_state_dict``. Dropout and stochastic depth (:class:`Dropout`,
+:class:`DropPath`) have no parameters; they draw their masks from the
+generator the model's forward hands them (:func:`set_dropout_generator`),
+and only in train mode at a rate above 0, so a model whose rates are 0
+(every shipped config) draws nothing. :class:`LayerScale` exists only
+where ``init_values`` is set.
 """
 
 from __future__ import annotations
@@ -60,81 +61,177 @@ class ConcatDense(nn.Module):
     products summed: ``ConcatDense(w)(a, b) == Linear(cat([a, b], -1))``,
     with the weight split by rows of ``widths``. A part with a broadcast
     dim (a (B, 1, C) global feature against (B, M, C) tokens) is
-    contracted before it is broadcast."""
+    contracted before it is broadcast. ``kernel_dims`` as for
+    :class:`Linear` (a reference 1x1 Conv1d over the concat: 1)."""
 
-    def __init__(self, widths, out_features: int, bias: bool = True):
+    def __init__(self, widths, out_features: int, bias: bool = True, kernel_dims: int = 0):
         super().__init__()
         self.widths = tuple(int(w) for w in widths)
-        self.weight = nn.Parameter(torch.empty(out_features, sum(self.widths)))
+        self.out_features = out_features
+        self.weight = nn.Parameter(torch.empty(out_features, sum(self.widths), *([1] * kernel_dims)))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, *parts: torch.Tensor) -> torch.Tensor:
         if len(parts) != len(self.widths):
             raise ValueError(f"ConcatDense expects {len(self.widths)} parts, got {len(parts)}")
+        weight = self.weight.reshape(self.out_features, sum(self.widths))
         out, start = None, 0
         for i, (p, w) in enumerate(zip(parts, self.widths)):
-            y = F.linear(p, self.weight[:, start : start + w], self.bias if i == 0 else None)
+            y = F.linear(p, weight[:, start : start + w], self.bias if i == 0 else None)
             out = y if out is None else out + y
             start += w
         return out
 
 
-class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 (reference models/Transformer_utils.py:71-87)."""
+def keep_mask(shape, keep: float, generator: torch.Generator | None,
+              device: torch.device) -> torch.Tensor:
+    """A boolean mask of ``shape``, each entry True with probability
+    ``keep``: a float32 uniform draw from ``generator`` (on ``device``)
+    below ``keep``, as ``jax.random.bernoulli`` draws. The explicit
+    generator is the point: ``torch.nn.functional.dropout`` would draw from
+    the global one. Raises without a generator, so no draw is hidden."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs a generator: pass one to the model's forward")
+    return torch.rand(shape, generator=generator, dtype=torch.float32, device=device) < keep
 
-    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+
+class _Stochastic(nn.Module):
+    """A layer that, in train mode at a rate above 0, keeps each entry of
+    its mask with probability keep = 1 - rate, drawn from the generator
+    :func:`set_dropout_generator` gave it: ``where(mask, x / keep, 0)``;
+    the identity otherwise. A subclass picks the mask's shape."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        return torch.where(keep_mask(self.mask_shape(x), keep, self.generator, x.device), x / keep,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
+class Dropout(_Stochastic):
+    """An elementwise mask (flax ``nn.Dropout``)."""
+
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        return tuple(x.shape)
+
+
+class DropPath(_Stochastic):
+    """Stochastic depth: one mask entry per sample (the leading axis), so a
+    sample keeps or drops its whole branch
+    (``imgadapointr_tpu/nn/layers.py:117-131``)."""
+
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
+
+
+def stochastic_layers(model: nn.Module) -> tuple:
+    """The model's :class:`Dropout` and :class:`DropPath` layers with a rate
+    above 0, in module order."""
+    return tuple(m for m in model.modules() if isinstance(m, _Stochastic) and m.rate > 0.0)
+
+
+def set_dropout_generator(layers, generator: torch.Generator | None) -> None:
+    """Hand ``generator`` to each layer of ``layers`` (see
+    :func:`stochastic_layers`): their masks come from it in train mode."""
+    for m in layers:
+        m.generator = generator
+
+
+class LayerScale(nn.Module):
+    """Per-channel learned scale ``x * gamma``, ``gamma`` initialised to
+    ``init_values`` (reference Transformer_utils.py:862-869)."""
+
+    def __init__(self, dim: int, init_values: float = 1e-5):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact GELU -> dropout -> fc2 -> dropout (reference
+    models/Transformer_utils.py:71-87)."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 drop: float = 0.0):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features)
         self.fc2 = Linear(hidden_features, out_features)
+        self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+        return self.drop(self.fc2(self.drop(gelu(self.fc1(x)))))
 
 
-def _sdpa(q, k, v, scale: float, mask: torch.Tensor | None = None) -> torch.Tensor:
+def _sdpa(q, k, v, scale: float, mask: torch.Tensor | None = None,
+          dropout: nn.Module | None = None) -> torch.Tensor:
     """Attention on (B, H, N, D) tensors with the softmax in >= float32.
     Written as matmul + softmax, as the JAX package leaves it to XLA.
-    ``mask`` is boolean, broadcastable to (B, H, N, M), True = masked."""
+    ``mask`` is boolean, broadcastable to (B, H, N, M), True = masked;
+    ``dropout`` applies to the attention weights."""
     acc = torch.promote_types(q.dtype, torch.float32)
     attn = torch.matmul(q.to(acc), k.to(acc).transpose(-2, -1)) * scale
     if mask is not None:
         attn = attn.masked_fill(mask, torch.finfo(attn.dtype).min)
     attn = attn.softmax(dim=-1)
+    if dropout is not None:
+        attn = dropout(attn)
     return torch.matmul(attn.to(v.dtype), v)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention (reference Transformer_utils.py:89-122)
     with an optional boolean mask, True = masked: the denoise task's rule
-    that real queries do not see the denoise tokens."""
+    that real queries do not see the denoise tokens. ``attn_drop`` drops
+    attention weights, ``proj_drop`` the output."""
 
-    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False):
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
+        self.attn_drop = Dropout(attn_drop)
         self.proj = Linear(dim, dim)
+        self.proj_drop = Dropout(proj_drop)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
         qkv = self.qkv(x).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
-        out = _sdpa(qkv[0], qkv[1], qkv[2], self.scale, mask)
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+        out = _sdpa(qkv[0], qkv[1], qkv[2], self.scale, mask, self.attn_drop)
+        return self.proj_drop(self.proj(out.transpose(1, 2).reshape(B, N, C)))
 
 
 class CrossAttention(nn.Module):
     """Multi-head cross-attention, q from queries, k and v from memory
-    (reference Transformer_utils.py:124-159; the blocks use out_dim == dim)."""
+    (reference Transformer_utils.py:124-159; the blocks use out_dim == dim),
+    with the dropouts of :class:`Attention`."""
 
-    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False):
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.q_map = Linear(dim, dim, bias=qkv_bias)
         self.k_map = Linear(dim, dim, bias=qkv_bias)
         self.v_map = Linear(dim, dim, bias=qkv_bias)
+        self.attn_drop = Dropout(attn_drop)
         self.proj = Linear(dim, dim)
+        self.proj_drop = Dropout(proj_drop)
 
     def forward(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         B, N, C = q.shape
@@ -145,8 +242,8 @@ class CrossAttention(nn.Module):
             return t.reshape(B, n, H, C // H).transpose(1, 2)
 
         out = _sdpa(heads(self.q_map(q), N), heads(self.k_map(v), M),
-                    heads(self.v_map(v), M), self.scale)
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+                    heads(self.v_map(v), M), self.scale, dropout=self.attn_drop)
+        return self.proj_drop(self.proj(out.transpose(1, 2).reshape(B, N, C)))
 
 
 class MultiheadAttention(nn.Module):

@@ -15,8 +15,11 @@ neighbour positions and re-samples the values there by inverse-distance
 3-NN interpolation (:func:`ops.three_nn_interpolate_grouped`, kernel
 ``csrc/three_nn_interpolate.cu``). Parameters carry the reference names
 (``proj_q``, ``proj_k``, ``proj_v``, ``proj_v_off``, ``linear_offset.{0,1,3}``,
-``proj`` or ``knn_map.0``). ``ImprovedDeformableLocalCrossAttention`` is not
-ported: no block token builds it.
+``proj`` or ``knn_map.0``). ``ImprovedDeformableLocalCrossAttention``
+(no block token builds it) is 'deform' with the box-scaled offsets of
+'deform_graph', at any ``n_group``. The three modules with an output
+projection drop it at ``proj_drop`` in train mode, as the JAX package's
+three ``nn.Dropout`` sites do; their ``attn_drop`` is unused there too.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import index_points, knn_point, three_nn_interpolate_grouped
-from .layers import Linear, leaky_relu
+from .layers import Dropout, Linear, leaky_relu
 
 
 def two_phase_knn_gather(k: int, q_pos, v_pos, feats, denoise_length: int):
@@ -96,10 +99,11 @@ def local_cross_attn(q_proj, k_feat, v_feat, num_heads: int, scale: float) -> to
 
 class _DeformableAttention(nn.Module):
     """The parameters of 'rw_deform' and 'deform': the q / k / v and offset
-    feature projections, the grouped offset net and the output projection."""
+    feature projections, the grouped offset net and the output projection
+    (then its dropout)."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
-                 k: int = 10, n_group: int = 2):
+                 k: int = 10, n_group: int = 2, proj_drop: float = 0.0):
         super().__init__()
         self.num_heads, self.k, self.n_group = num_heads, k, n_group
         self.scale = (dim // num_heads) ** -0.5
@@ -109,6 +113,7 @@ class _DeformableAttention(nn.Module):
         self.proj_v_off = Linear(dim, dim, bias=qkv_bias)
         self.linear_offset = offset_net(2 * dim // n_group, dim)
         self.proj = Linear(dim, dim)
+        self.proj_drop = Dropout(proj_drop)
 
 
 class DeformableLocalAttention(_DeformableAttention):
@@ -131,7 +136,7 @@ class DeformableLocalAttention(_DeformableAttention):
         vh = self.proj_v(interp).reshape(B, N, k, H, C // H)
         attn = (torch.einsum("bnkhd,bnlhd->bnhkl", qh, kh) * self.scale).softmax(dim=-1)
         out = torch.einsum("bnhkl,bnlhd->bnkhd", attn, vh).reshape(B, N, k, C)
-        return self.proj(out.amax(dim=2))
+        return self.proj_drop(self.proj(out.amax(dim=2)))
 
 
 class DeformableLocalCrossAttention(_DeformableAttention):
@@ -158,11 +163,31 @@ class DeformableLocalCrossAttention(_DeformableAttention):
             v_off = self.proj_v_off(v)
             local_v, local_v_pos = two_phase_knn_gather(self.k, q_pos, v_pos, (v_off, v_pos),
                                                         denoise_length)
+        return self._attend(qp, v, local_v, local_v_pos, v_pos)
+
+    def _attend(self, qp, v, local_v, local_v_pos, v_pos, scale_by_bbox: bool = False):
         interp = grouped_deform_gather(self.linear_offset, qp, v, local_v, local_v_pos, v_pos,
-                                       self.n_group)
+                                       self.n_group, scale_by_bbox)
         out = local_cross_attn(qp, self.proj_k(interp), self.proj_v(interp), self.num_heads,
                                self.scale)
-        return self.proj(out)
+        return self.proj_drop(self.proj(out))
+
+
+class ImprovedDeformableLocalCrossAttention(DeformableLocalCrossAttention):
+    """'deform' with each region's offsets scaled by half its box extent,
+    per channel group (``imgadapointr_tpu/nn/local_attention.py:235-273``,
+    reference Transformer_utils.py:495-623): self- or cross-attention, no
+    denoise mode."""
+
+    def forward(self, q, q_pos, v=None, v_pos=None, idx=None) -> torch.Tensor:
+        v = q if v is None else v
+        v_pos = q_pos if v_pos is None else v_pos
+        if idx is None:
+            idx = knn_point(self.k, v_pos, q_pos)
+        qp = self.proj_q(q)
+        v_off = self.proj_v_off(v)
+        local_v, local_v_pos = index_points(v_off, idx), index_points(v_pos, idx)
+        return self._attend(qp, v, local_v, local_v_pos, v_pos, scale_by_bbox=True)
 
 
 class ImprovedDeformableLocalGraphAttention(nn.Module):
@@ -238,13 +263,13 @@ class DynamicGraphAttention(nn.Module):
 
 
 def make_local_attn(token: str, dim: int, num_heads: int, qkv_bias: bool, k: int,
-                    n_group: int) -> nn.Module:
-    """The module of a local block token
+                    n_group: int, drop: float = 0.0) -> nn.Module:
+    """The module of a local block token, ``drop`` its output dropout
     (``imgadapointr_tpu/nn/blocks.py:36-51``)."""
     if token == "rw_deform":
-        return DeformableLocalAttention(dim, num_heads, qkv_bias, k, n_group)
+        return DeformableLocalAttention(dim, num_heads, qkv_bias, k, n_group, drop)
     if token == "deform":
-        return DeformableLocalCrossAttention(dim, num_heads, qkv_bias, k, n_group)
+        return DeformableLocalCrossAttention(dim, num_heads, qkv_bias, k, n_group, drop)
     if token == "graph":
         return DynamicGraphAttention(dim, k)
     if token == "deform_graph":

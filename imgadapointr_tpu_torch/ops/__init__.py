@@ -26,6 +26,7 @@ from .gather_sum import (
 )
 from .normals import estimate_pointcloud_normals
 from .pointops import (
+    ball_query,
     fps,
     fps_plain,
     furthest_point_sample,
@@ -38,6 +39,7 @@ from .pointops import (
     knn_with_distance,
     scatter_add_rows,
     scatter_add_rows_plain,
+    square_distance,
     three_interpolate,
     three_nn,
     three_nn_interpolate,
@@ -56,7 +58,7 @@ from .sampling import (
 )
 
 __all__ = [
-    "chamfer_l1", "chamfer_l1_pm", "chamfer_l2", "chamfer_l2_split",
+    "ball_query", "square_distance", "chamfer_l1", "chamfer_l1_pm", "chamfer_l2", "chamfer_l2_split",
     "nn_bidir_argmin", "nn_bidir_argmin_plain", "nn_distance",
     "nn_distance_eval", "nn_one_direction", "nn_one_direction_plain", "fps",
     "fps_plain", "furthest_point_sample", "gather_points", "gather_rows",

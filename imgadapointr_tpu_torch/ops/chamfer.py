@@ -19,10 +19,9 @@ Each kernel has its plain PyTorch version beside its wrapper.
 
 from __future__ import annotations
 
-import os
-
 import torch
 
+from ..utils.envflags import env_flag
 from . import _build
 from .pointops import _on_cpu, index_points, scatter_add_rows, sqdist
 
@@ -259,14 +258,8 @@ def mxu_eval_chamfer_active(n: int, m: int, device) -> bool:
         and n * m >= 1 << 22
         and n <= _BIDIR_MAX_POINTS
         and m <= _BIDIR_MAX_POINTS
-        and _env_flag("IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER")
+        and env_flag("IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER")
     )
-
-
-def _env_flag(name: str) -> bool:
-    """A boolean environment flag: set and not one of '', '0', 'false',
-    'no', 'off' (any case)."""
-    return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no", "off")
 
 
 def nn_distance_eval(x: torch.Tensor, y: torch.Tensor):

@@ -24,11 +24,16 @@ is no fallback from the kernel to the plain version.
 Selection contract (``imgadapointr_tpu/ops/pallas/nn_distance.py:17-24``):
 kNN and FPS rank by the diff-form squared distance ``(dx*dx + dy*dy) +
 dz*dz`` and break ties on the first index; never by the matmul form or
-``torch.cdist``. Indices are int64.
+``torch.cdist``. Indices are int64. The one exception is
+:func:`ball_query`, which ranks by :func:`square_distance`, the matmul
+form, because the JAX package's ``ball_query`` does
+(``imgadapointr_tpu/ops/pointops.py:22-51,377-402``); no kernel backs
+either.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -197,6 +202,53 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 gather_points = index_points
+
+
+# ------------------------------------------------ matmul-form distance, ball query
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """TF32 off for the block's CUDA matmuls, then back as it was."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """(..., N, M) squared distances of ``src`` (..., N, C) to ``dst`` (...,
+    M, C) in the matmul form ``(-2 src·dstᵀ + |src|²) + |dst|²``, accumulated
+    in >= float32 with TF32 off (reference Transformer_utils.py:32-51,
+    ``imgadapointr_tpu/ops/pointops.py:22-51``). Not a selection metric of
+    the port: kNN and FPS rank by the diff form."""
+    acc = torch.promote_types(src.dtype, torch.float32)
+    src, dst = src.to(acc), dst.to(acc)
+    with _full_f32_matmul():
+        d = -2.0 * torch.matmul(src, dst.transpose(-2, -1))
+    d = d + (src * src).sum(dim=-1, keepdim=True)
+    return d + (dst * dst).sum(dim=-1)[..., None, :]
+
+
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
+    """(B, S, nsample) int64: for each query of ``new_xyz`` (B, S, 3) the
+    first ``nsample`` points of ``xyz`` (B, N, 3) within ``radius``, in
+    *index* order (pointnet2 ``ball_query``); a short neighbourhood repeats
+    its first in-radius point, a query with none gets index 0. Points are
+    in the ball where :func:`square_distance` (the matmul form, as the JAX
+    package's ``ball_query`` ranks) is <= radius². Non-differentiable."""
+    N = xyz.shape[1]
+    in_ball = square_distance(new_xyz.detach(), xyz.detach()) <= radius * radius
+    ar = torch.arange(N, device=xyz.device)
+    key = torch.where(in_ball, ar, torch.full_like(ar, N))  # (B, S, N)
+    idx = torch.topk(key, min(nsample, N), dim=-1, largest=False, sorted=True).values
+    if nsample > N:  # more slots than points: the extra slots repeat the filler
+        idx = torch.cat([idx, idx.new_full((*idx.shape[:-1], nsample - N), N)], dim=-1)
+    valid = idx < N
+    first = torch.where(valid[..., :1], idx[..., :1], torch.zeros_like(idx[..., :1]))
+    return torch.where(valid, idx, first)
 
 
 # ------------------------------------------------------------------------ kNN

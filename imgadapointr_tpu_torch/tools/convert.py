@@ -14,6 +14,17 @@ are stacked back by rows, the split q / k / v maps are packed into
 statistics copy across. Because the port's parameters carry the reference
 names, the result loads with ``model.load_state_dict(sd, strict=True)``.
 
+The options no shipped config sets map the same way: the ``pn`` grouper
+(``grouper.embedding.{first,second}_conv``, the reference's
+``PCNEncoder`` layout, from flax's ``grouper/embedding/{first,second}_*``),
+the ``fold`` head (``decode_head.folding{1,2}``, from
+``decode_head/folding{1,2}_*``), LayerScale (``ls{i}.gamma``) and the
+'onebyone' blocks' extra norms (``norm3``, ``norm_q_2``, ``norm_v_2``).
+:func:`module_state_from_flax` carries the flax tree of a standalone
+module: a legacy block (``nn/legacy_blocks.py``),
+``ImprovedDeformableLocalCrossAttention``, ``ResNet50Encoder`` (torchvision's
+names, as ResNet18's) or ``ConvNextEncoder``.
+
 The five baselines (FoldingNet, PCN, TopNet, SnowFlakeNet, GRNet) have no
 reference converter in the JAX package (``converter_for`` raises at
 ``imgadapointr_tpu/tools/convert_torch.py:565``), so the port names their
@@ -31,7 +42,9 @@ train state (the restored ``opt_state`` of the JAX chain, AdamW, Adam or
 SGD, under ``MultiSteps`` or not) across the same mapping into the
 ``state_dict()`` of the port's optimizer, so the port can continue a JAX
 run; :func:`adamw_state_from_optax` does it for Adam's moments
-(``mu``, ``nu`` and the step ``count``).
+(``mu``, ``nu`` and the step ``count``); :func:`pending_grads_from_optax`
+turns a ``MultiSteps`` state's pending running mean into the port's
+pending gradient sum.
 
 :func:`load_reference_state` reads a reference-layout ``.pth``/``.pt``;
 :func:`load_weights` loads a model's weights from such a file or from a
@@ -47,7 +60,8 @@ import torch
 from ..models import BASELINES
 from ..models.gdanet import BLOCKS as GDANET_BLOCKS
 from ..nn.blocks import _parse_style
-from ..nn.layers import BatchNorm, ConcatDense, Linear
+from ..nn.image_encoders import ResNet18Encoder, ResNet50Encoder
+from ..nn.layers import BatchNorm, ConcatDense, LayerScale, Linear
 from ..utils.checkpoint import load_jax_checkpoint, resolve_jax_checkpoint
 
 # models whose flax tree keeps the AdaPoinTr core under ``core`` beside
@@ -117,9 +131,9 @@ def _mapping(config) -> list:
         m.append((f"{tk}.weight", "param", fp + ("scale",), 0))
         m.append((f"{tk}.bias", "param", fp + ("bias",), 0))
 
-    def concat(tk, fp, n_parts):
+    def concat(tk, fp, n_parts, kernel_dims=0):
         parts = tuple(fp + (f"part{i}", "kernel") for i in range(n_parts))
-        m.append((f"{tk}.weight", "concat", parts, 0))
+        m.append((f"{tk}.weight", "concat", parts, kernel_dims))
         m.append((f"{tk}.bias", "param", fp + ("part0", "bias"), 0))
 
     def batchnorm(tk, fp):
@@ -130,11 +144,20 @@ def _mapping(config) -> list:
 
     bm = core + ("base_model",)
     enc, dec = config.encoder_config, config.decoder_config
-    linear("base_model.grouper.input_trans", bm + ("grouper", "input_trans"), kernel_dims=1)
-    for i in range(1, 5):
-        linear(f"base_model.grouper.layer{i}.0", bm + ("grouper", f"layer{i}_conv"),
-               bias=False, kernel_dims=2)
-        norm(f"base_model.grouper.layer{i}.1", bm + ("grouper", f"layer{i}_gn"))
+    if config.encoder_type == "pn":  # SimpleEncoder's PCNEncoder
+        tp, fp = "base_model.grouper.embedding", bm + ("grouper", "embedding")
+        linear(f"{tp}.first_conv.0", fp + ("first_conv1",), kernel_dims=1)
+        batchnorm(f"{tp}.first_conv.1", fp + ("first_bn",))
+        linear(f"{tp}.first_conv.3", fp + ("first_conv2",), kernel_dims=1)
+        concat(f"{tp}.second_conv.0", fp + ("second_conv1",), 2, kernel_dims=1)
+        batchnorm(f"{tp}.second_conv.1", fp + ("second_bn",))
+        linear(f"{tp}.second_conv.3", fp + ("second_conv2",), kernel_dims=1)
+    else:
+        linear("base_model.grouper.input_trans", bm + ("grouper", "input_trans"), kernel_dims=1)
+        for i in range(1, 5):
+            linear(f"base_model.grouper.layer{i}.0", bm + ("grouper", f"layer{i}_conv"),
+                   bias=False, kernel_dims=2)
+            norm(f"base_model.grouper.layer{i}.1", bm + ("grouper", f"layer{i}_gn"))
     for tk, (a, b) in (
         ("pos_embed", ("pos_embed1", "pos_embed2")),
         ("input_proj", ("input_proj1", "input_proj2")),
@@ -168,20 +191,29 @@ def _mapping(config) -> list:
         linear(f"{tp}.knn_map.0" if token == "deform_graph" else f"{tp}.proj",
                fp + ("knn_map" if token == "deform_graph" else "proj",))
 
+    def layer_scales(tp, fp, cfg, ids):
+        if cfg.get("init_values", None):
+            for j in ids:
+                m.append((f"{tp}.ls{j}.gamma", "param", fp + (f"ls{j}", "gamma"), 0))
+
     for i, style in enumerate(enc.block_style_list):
         tp, fp = f"base_model.encoder.blocks.blocks.{i}", bm + ("encoder", f"block{i}")
         has_attn, loc = _parse_style(style)
+        onebyone = has_attn and loc and enc.get("combine_style", "concat") == "onebyone"
         norm(f"{tp}.norm1", fp + ("norm1",))
         norm(f"{tp}.norm2", fp + ("norm2",))
+        if onebyone:
+            norm(f"{tp}.norm3", fp + ("norm3",))
         if has_attn:
             linear(f"{tp}.attn.qkv", fp + ("attn", "qkv"), bias=qkv_bias)
             linear(f"{tp}.attn.proj", fp + ("attn", "proj"))
         if loc:
             local(f"{tp}.local_attn", fp + ("local_attn",), loc)
-            if has_attn:
+            if has_attn and not onebyone:
                 linear(f"{tp}.merge_map", fp + ("merge_map",))
         linear(f"{tp}.mlp.fc1", fp + ("mlp", "fc1"))
         linear(f"{tp}.mlp.fc2", fp + ("mlp", "fc2"))
+        layer_scales(tp, fp, enc, (1, 2, 3) if onebyone else (1, 2))
 
     for i, (sa, ca) in enumerate(zip(dec.self_attn_block_style_list,
                                      dec.cross_attn_block_style_list)):
@@ -190,12 +222,19 @@ def _mapping(config) -> list:
             norm(f"{tp}.{n}", fp + (n,))
         sa_attn, sa_loc = _parse_style(sa)
         ca_attn, ca_loc = _parse_style(ca)
+        sa_one = sa_attn and sa_loc and dec.get("self_attn_combine_style", "concat") == "onebyone"
+        ca_one = ca_attn and ca_loc and dec.get("cross_attn_combine_style", "concat") == "onebyone"
+        if sa_one:
+            norm(f"{tp}.norm3", fp + ("norm3",))
+        if ca_one:
+            norm(f"{tp}.norm_q_2", fp + ("norm_q_2",))
+            norm(f"{tp}.norm_v_2", fp + ("norm_v_2",))
         if sa_attn:
             linear(f"{tp}.self_attn.qkv", fp + ("self_attn", "qkv"), bias=qkv_bias)
             linear(f"{tp}.self_attn.proj", fp + ("self_attn", "proj"))
         if sa_loc:
             local(f"{tp}.local_self_attn", fp + ("local_self_attn",), sa_loc)
-            if sa_attn:
+            if sa_attn and not sa_one:
                 linear(f"{tp}.self_attn_merge_map", fp + ("self_attn_merge_map",))
         if ca_attn:
             for mname in ("q_map", "k_map", "v_map"):
@@ -203,19 +242,27 @@ def _mapping(config) -> list:
             linear(f"{tp}.cross_attn.proj", fp + ("cross_attn", "proj"))
         if ca_loc:
             local(f"{tp}.local_cross_attn", fp + ("local_cross_attn",), ca_loc)
-            if ca_attn:
+            if ca_attn and not ca_one:
                 linear(f"{tp}.cross_attn_merge_map", fp + ("cross_attn_merge_map",))
         linear(f"{tp}.mlp.fc1", fp + ("mlp", "fc1"))
         linear(f"{tp}.mlp.fc2", fp + ("mlp", "fc2"))
+        layer_scales(tp, fp, dec, (1,) + ((3,) if sa_one else ()) + (4,) + ((5,) if ca_one else ()) + (2,))
 
     linear("increase_dim.0", core + ("increase_dim1",), kernel_dims=1)
     batchnorm("increase_dim.1", core + ("increase_dim_bn",))
     linear("increase_dim.3", core + ("increase_dim2",), kernel_dims=1)
     concat("reduce_map", core + ("reduce_map",), 3)
-    if config.decoder_type != "fc":
-        raise NotImplementedError(f"decoder_type {config.decoder_type!r} has no port yet")
-    concat("decode_head.layer.fc1", core + ("decode_head", "layer_fc1"), 2)
-    linear("decode_head.layer.fc2", core + ("decode_head", "layer_fc2"))
+    if config.decoder_type == "fold":  # conv, BN, ReLU, conv, BN, ReLU, conv per fold
+        for j in (1, 2):
+            tp, fp = f"decode_head.folding{j}", core + ("decode_head",)
+            concat(f"{tp}.0", fp + (f"folding{j}_conv1",), 2, kernel_dims=1)
+            batchnorm(f"{tp}.1", fp + (f"folding{j}_bn1",))
+            linear(f"{tp}.3", fp + (f"folding{j}_conv2",), kernel_dims=1)
+            batchnorm(f"{tp}.4", fp + (f"folding{j}_bn2",))
+            linear(f"{tp}.6", fp + (f"folding{j}_conv3",), kernel_dims=1)
+    else:
+        concat("decode_head.layer.fc1", core + ("decode_head", "layer_fc1"), 2)
+        linear("decode_head.layer.fc2", core + ("decode_head", "layer_fc2"))
 
     def fusion(tag, fp):
         """get_better_{tag}_size + 5 attention layers + 5 LayerNorms
@@ -241,18 +288,7 @@ def _mapping(config) -> list:
     if seg:
         fusion("seg", bm + ("seg_fusion",))
     if img:  # torchvision's ResNet18 through layer3 (convert_torch.py:369-406)
-        tp, fp = "base_model.im_encoder.base", ("im_encoder", "trunk")
-        m.append((f"{tp}.0.weight", "conv", fp + ("stem_conv", "kernel"), 0))
-        batchnorm(f"{tp}.1", fp + ("stem_bn",))
-        for s in range(3):
-            for b in range(2):
-                tb, fb = f"{tp}.{4 + s}.{b}", fp + (f"layer{s + 1}_{b}",)
-                for i in (1, 2):
-                    m.append((f"{tb}.conv{i}.weight", "conv", fb + (f"conv{i}", "kernel"), 0))
-                    batchnorm(f"{tb}.bn{i}", fb + (f"bn{i}",))
-                if s > 0 and b == 0:
-                    m.append((f"{tb}.downsample.0.weight", "conv", fb + ("down_conv", "kernel"), 0))
-                    batchnorm(f"{tb}.downsample.1", fb + ("down_bn",))
+        m += _resnet_mapping(ResNet18Encoder, "base_model.im_encoder.base", ("im_encoder", "trunk"))
     if seg:  # GDANet (convert_torch.py:convert_gdanet, inverted)
         tp, fp = "base_model.segmentator", ("segmentator",)
         for conv, bn, _, _ in GDANET_BLOCKS:
@@ -269,6 +305,105 @@ def _mapping(config) -> list:
             m.append((f"{tp}.{sg}.W.1.running_var", "stats", fp + (sg, "W_bn_var"), 0))
             m.append((f"{tp}.{sg}.W.1.num_batches_tracked", "counter", (), 0))
     return m
+
+
+def _batchnorm_entries(tk: str, fp: tuple) -> list:
+    return [(f"{tk}.weight", "param", fp + ("scale",), 0), (f"{tk}.bias", "param", fp + ("bias",), 0),
+            (f"{tk}.running_mean", "stats", fp + ("mean",), 0),
+            (f"{tk}.running_var", "stats", fp + ("var",), 0),
+            (f"{tk}.num_batches_tracked", "counter", (), 0)]
+
+
+def _resnet_mapping(encoder: type, tp: str, fp: tuple) -> list:
+    """A torchvision-named ResNet trunk ``tp`` (``.0`` stem conv, ``.1``
+    stem BN, ``.4``... the stages; ``conv{i}``, ``bn{i}``,
+    ``downsample.{0,1}`` in a block) from the flax trunk ``fp``
+    (``stem_conv``, ``stem_bn``, ``layer{s}_{b}/{conv,bn}{i}``,
+    ``down_conv``, ``down_bn``). ResNet18 keeps three stages of two basic
+    blocks, ResNet50 four bottleneck stages (3, 4, 6, 3)."""
+    stages, n_conv = ((2, 2, 2), 2) if encoder is ResNet18Encoder else ((3, 4, 6, 3), 3)
+    m = [(f"{tp}.0.weight", "conv", fp + ("stem_conv", "kernel"), 0)]
+    m += _batchnorm_entries(f"{tp}.1", fp + ("stem_bn",))
+    for s, blocks in enumerate(stages):
+        for b in range(blocks):
+            tb, fb = f"{tp}.{4 + s}.{b}", fp + (f"layer{s + 1}_{b}",)
+            for i in range(1, n_conv + 1):
+                m.append((f"{tb}.conv{i}.weight", "conv", fb + (f"conv{i}", "kernel"), 0))
+                m += _batchnorm_entries(f"{tb}.bn{i}", fb + (f"bn{i}",))
+            if b == 0 and (s > 0 or n_conv == 3):  # the shape changes: a projected shortcut
+                m.append((f"{tb}.downsample.0.weight", "conv", fb + ("down_conv", "kernel"), 0))
+                m += _batchnorm_entries(f"{tb}.downsample.1", fb + ("down_bn",))
+    return m
+
+
+# the local attention modules' Sequentials, as the flax tree names their layers
+_FLAX_SUBNAMES = {("linear_offset", "0"): "Dense_0", ("linear_offset", "1"): "LayerNorm_0",
+                  ("linear_offset", "3"): "Dense_1", ("knn_map", "0"): None}
+
+
+def _flax_path(name: str) -> tuple:
+    """The flax scope of the port's submodule ``name`` in a module named
+    after the flax tree: ``a.b`` -> ``a/b``, with the local attention
+    modules' Sequential indices renamed (``linear_offset.0`` ->
+    ``linear_offset/Dense_0``, ``knn_map.0`` -> ``knn_map``)."""
+    parts = name.split(".") if name else []
+    out = []
+    for i, p in enumerate(parts):
+        key = (parts[i - 1], p) if i else None
+        if key in _FLAX_SUBNAMES:
+            if _FLAX_SUBNAMES[key] is not None:
+                out.append(_FLAX_SUBNAMES[key])
+        else:
+            out.append(p)
+    return tuple(out)
+
+
+def _module_mapping(module: torch.nn.Module) -> list:
+    """:func:`_mapping`'s entries for a standalone module whose names follow
+    its flax tree (a legacy block, ``ImprovedDeformableLocalCrossAttention``,
+    ``ConvNextEncoder``), or ResNet50's torchvision names."""
+    if isinstance(module, ResNet50Encoder):
+        return _resnet_mapping(ResNet50Encoder, "base", ("trunk",))
+    m = []
+    for name, mod in module.named_modules():
+        fp, pre = _flax_path(name), f"{name}." if name else ""
+        if isinstance(mod, Linear):
+            m.append((f"{pre}weight", "linear", fp + ("kernel",), mod.weight.dim() - 2))
+        elif isinstance(mod, torch.nn.Conv2d):
+            m.append((f"{pre}weight", "conv", fp + ("kernel",), 0))
+        elif isinstance(mod, torch.nn.LayerNorm):
+            m.append((f"{pre}weight", "param", fp + ("scale",), 0))
+        elif isinstance(mod, LayerScale):
+            m.append((f"{pre}gamma", "param", fp + ("gamma",), 0))
+            continue
+        elif isinstance(mod, (BatchNorm, torch.nn.BatchNorm2d)):
+            m += _batchnorm_entries(name, fp)
+            continue
+        else:
+            if "gamma" in dict(mod.named_parameters(recurse=False)):  # a ConvNeXt block's
+                m.append((f"{pre}gamma", "param", fp + ("gamma",), 0))
+            continue
+        if getattr(mod, "bias", None) is not None:
+            m.append((f"{pre}bias", "param", fp + ("bias",), 0))
+    return m
+
+
+def module_state_from_flax(module: torch.nn.Module, params, batch_stats=None,
+                           dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """The state dict of a standalone ``module`` (see :func:`_module_mapping`)
+    from its flax ``params`` / ``batch_stats``, for a strict
+    ``load_state_dict``."""
+    out = {}
+    for tkey, kind, path, kernel_dims in _module_mapping(module):
+        if kind == "stats":
+            v = _leaf(batch_stats, path)
+        elif kind == "counter":
+            out[tkey] = torch.tensor(0, dtype=torch.int64)
+            continue
+        else:
+            v = _convert_leaf(params, kind, path, kernel_dims)
+        out[tkey] = torch.from_numpy(np.array(v)).to(dtype)
+    return out
 
 
 def conv3d_weight(kernel: np.ndarray) -> np.ndarray:
@@ -295,26 +430,32 @@ def _leaf(tree, path):
 def _params_from_flax(params, config) -> dict[str, np.ndarray]:
     """A flax params-shaped tree (weights, gradients or moments) -> arrays
     under the port's parameter names, in the port's layouts."""
-    out: dict[str, np.ndarray] = {}
-    for tkey, kind, path, kernel_dims in _mapping(config):
-        if kind == "linear":
-            w = _leaf(params, path).T
-            out[tkey] = w.reshape(w.shape + (1,) * kernel_dims)
-        elif kind == "concat":
-            out[tkey] = np.concatenate([_leaf(params, p) for p in path], axis=0).T
-        elif kind == "stack":
-            out[tkey] = np.concatenate([_leaf(params, p).T for p in path], axis=0)
-        elif kind == "cat":
-            out[tkey] = np.concatenate([_leaf(params, p) for p in path], axis=0)
-        elif kind == "conv":
-            out[tkey] = np.transpose(_leaf(params, path), (3, 2, 0, 1))
-        elif kind == "conv3d":
-            out[tkey] = conv3d_weight(_leaf(params, path))
-        elif kind == "deconv3d":
-            out[tkey] = conv_transpose3d_weight(_leaf(params, path))
-        elif kind == "param":
-            out[tkey] = _leaf(params, path)
-    return out
+    return {tkey: _convert_leaf(params, kind, path, kernel_dims)
+            for tkey, kind, path, kernel_dims in _mapping(config)
+            if kind not in ("stats", "counter")}
+
+
+def _convert_leaf(params, kind: str, path, kernel_dims: int) -> np.ndarray:
+    """One mapping entry's array in the port's layout."""
+    if kind == "linear":
+        w = _leaf(params, path).T
+        return w.reshape(w.shape + (1,) * kernel_dims)
+    if kind == "concat":
+        w = np.concatenate([_leaf(params, p) for p in path], axis=0).T
+        return w.reshape(w.shape + (1,) * kernel_dims)
+    if kind == "stack":
+        return np.concatenate([_leaf(params, p).T for p in path], axis=0)
+    if kind == "cat":
+        return np.concatenate([_leaf(params, p) for p in path], axis=0)
+    if kind == "conv":
+        return np.transpose(_leaf(params, path), (3, 2, 0, 1))
+    if kind == "conv3d":
+        return conv3d_weight(_leaf(params, path))
+    if kind == "deconv3d":
+        return conv_transpose3d_weight(_leaf(params, path))
+    if kind == "param":
+        return _leaf(params, path)
+    raise ValueError(f"unknown mapping kind {kind!r}")
 
 
 def state_dict_from_flax(params, batch_stats, config, dtype=torch.float32) -> dict[str, torch.Tensor]:
@@ -378,8 +519,8 @@ def optimizer_state_from_optax(opt_state, config, model, optimizer) -> dict:
     (``count``, ``mu``, ``nu``), SGD with momentum its ``TraceState``
     (``trace``: torch's ``momentum_buffer``, the same recursion ``b = m b +
     g``); SGD without momentum keeps none. The state of ``MultiSteps`` is
-    ``inner_opt_state``; its pending sum of gradients (``acc_grads``) is
-    not carried: the port's checkpoints keep no partial sum either."""
+    ``inner_opt_state``; its pending gradients are
+    :func:`pending_grads_from_optax`'s."""
     inner = opt_state.get("inner_opt_state", opt_state) if isinstance(opt_state, dict) else opt_state
     if isinstance(optimizer, torch.optim.SGD):
         traces = _find_states(inner, {"trace"})
@@ -396,6 +537,27 @@ def optimizer_state_from_optax(opt_state, config, model, optimizer) -> dict:
                          f"found {len(adams)}")
     (adam,) = adams
     return adamw_state_from_optax(adam["mu"], adam["nu"], int(adam["count"]), config, model, optimizer)
+
+
+def pending_grads_from_optax(opt_state, config, model) -> dict:
+    """The gradient sum pending in a JAX ``MultiSteps`` state, by the port's
+    parameter names, as tensors on the parameters' device and dtype: empty
+    unless ``mini_step`` m > 0. optax keeps the running mean of the m
+    gradients so far (``acc_grads``, ``acc + (g - acc) / (n + 1)``), and
+    the JAX chain scales the mean of all k by k in front of the inner chain
+    (``imgadapointr_tpu/tools/builder.py:179-190``), which is the sum the
+    port's runner adds up in ``grad``: so the pending sum is m *
+    ``acc_grads``. Parameters that get no gradient (see
+    :func:`adamw_state_from_optax`) get none here either."""
+    from .builder import ZERO_GRAD_PARAM_MARKERS
+
+    if not isinstance(opt_state, dict) or int(opt_state.get("mini_step", 0)) == 0:
+        return {}
+    m = int(opt_state["mini_step"])
+    arrays = _params_from_flax(opt_state["acc_grads"], config)
+    return {name: (m * torch.from_numpy(np.array(arrays[name])).to(torch.float64)).to(p)
+            for name, p in model.named_parameters()
+            if p.requires_grad and name in arrays and not any(k in name for k in ZERO_GRAD_PARAM_MARKERS)}
 
 
 def _state_from_flax(optimizer, model, config, trees: dict, step: int | None = None) -> dict:

@@ -39,12 +39,14 @@ from ..models import build_model
 from ..ops import fps, mxu_eval_chamfer_active, nn_distance, random_dropping, separate_point_cloud, train_random_crop
 from ..ops.chamfer import _sqrt_floor
 from ..utils.average_meter import AverageMeter
-from ..utils.checkpoint import checkpoint_path, load_checkpoint, load_jax_checkpoint, save_checkpoint
+from ..utils.checkpoint import (checkpoint_path, load_checkpoint, load_jax_checkpoint, save_checkpoint,
+                                set_pending_grads)
 from ..utils.device import deterministic_cudnn, resolve_device
 from ..utils.logger import print_log
 from ..utils.metrics import METRIC_NAMES, Metrics, compute_metrics_per_sample, eval_metric_suite, f_score
 from .builder import ZERO_GRAD_PARAM_MARKERS, build_opt_sched, dataset_builder
-from .convert import load_flax_weights, load_gdanet_weights, load_weights, optimizer_state_from_optax
+from .convert import (load_flax_weights, load_gdanet_weights, load_weights, optimizer_state_from_optax,
+                      pending_grads_from_optax)
 
 SHAPENET_DICT_PATH = os.path.join("cfgs", "shapenet_synset_dict.json")
 EVAL_KEYS = ("sparse_l1", "sparse_l2", "dense_l1", "dense_l2", "f_score")
@@ -271,12 +273,20 @@ class Runner:
         return rows.reshape(V, B, -1).double().cpu().numpy()
 
     # ------------------------------------------------------------- checkpoints
+    def pending_grads(self) -> dict | None:
+        """The gradient sum of the batches since the last update (by
+        parameter name), None right after an update."""
+        if self.step % self.step_per_update == 0:
+            return None
+        return {n: p.grad.detach() for n, p in self.model.named_parameters() if p.grad is not None}
+
     def save(self, prefix: str, epoch: int, metrics, best_metrics) -> str:
         return save_checkpoint(
             self.model, self.optimizer, epoch, self.step,
             metrics.state_dict() if metrics else None,
             best_metrics.state_dict() if best_metrics else None,
             prefix, self.args.experiment_path, self.logger, generator=self.generator,
+            pending_grads=self.pending_grads(),
         )
 
     def load_weights(self, path: str) -> None:
@@ -287,10 +297,11 @@ class Runner:
 
     def resume(self, path: str) -> dict:
         """Continue from the checkpoint at ``path``: this runner's ``.pth``
-        (weights, optimizer, step and the train draws' generator), or a JAX
-        ``.ckpt`` (weights, BN statistics, optimizer state and step; the
-        JAX run's random stream is not the port's, so the generator stays as
-        seeded). Returns the checkpoint's ``epoch`` and ``best_metrics``."""
+        (weights, optimizer, step, the pending ``step_per_update`` sum and
+        the train draws' generator), or a JAX ``.ckpt`` (weights, BN
+        statistics, optimizer state, step, and the pending sum its
+        ``MultiSteps`` state holds; the JAX run's random stream is not the
+        port's, so the generator stays as seeded). Returns the checkpoint's ``epoch`` and ``best_metrics``."""
         if path.endswith(".pth"):
             meta = load_checkpoint(path, self.model, self.optimizer, self.generator)
             self.step = int(meta["step"])
@@ -301,10 +312,8 @@ class Runner:
         if opt_state is not None:
             self.optimizer.load_state_dict(
                 optimizer_state_from_optax(opt_state, self.config.model, self.model, self.optimizer))
-            pending = int(opt_state.get("mini_step", 0)) if isinstance(opt_state, dict) else 0
-            if pending:
-                print_log(f"{path}: the JAX run's sum of {pending} pending batch gradients "
-                          "(MultiSteps) is dropped", self.logger)
+            set_pending_grads(self.model, pending_grads_from_optax(
+                opt_state, self.config.model, self.model))
         self.step = int(tree.get("step", 0))
         return {"epoch": meta.get("epoch", -1), "best_metrics": meta.get("best_metrics")}
 

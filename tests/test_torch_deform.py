@@ -270,8 +270,10 @@ def test_block_styles_parse_like_the_jax_package():
         blocks.CrossAttnBlockApi(48, 6, cross_attn_block_style="attn-rw_deform")
     with pytest.raises(ValueError, match="unexpected"):
         blocks._parse_style("attn-bogus")
-    with pytest.raises(NotImplementedError, match="concat"):
-        blocks.SelfAttnBlockApi(48, 6, block_style="attn-deform", combine_style="onebyone")
+    with pytest.raises(ValueError, match="onebyone"):
+        blocks.SelfAttnBlockApi(48, 6, block_style="attn-deform", combine_style="interleave")
+    one = blocks.SelfAttnBlockApi(48, 6, block_style="attn-deform", combine_style="onebyone")
+    assert one.onebyone and one.merge_map is None and one.norm3 is not None
     blk = blocks.CrossAttnBlockApi(48, 6, self_attn_block_style="rw_deform",
                                    cross_attn_block_style="deform_graph", n_group=3)
     assert blk.self_attn is None and blk.self_attn_merge_map is None
