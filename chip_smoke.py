@@ -6,7 +6,8 @@
 Phases; any failure exits non-zero and prints no result line:
 
 1. checks: a CUDA device, the card's name and power limit (nvidia-smi), the
-   build of every kernel in ``imgadapointr_tpu_torch/csrc``, and ``HMMA``
+   build of every kernel in ``imgadapointr_tpu_torch/csrc`` and of the native
+   point-cloud reader (``imgadapointr_tpu_torch/native``), and ``HMMA``
    instructions in the matmul-form argmin's SASS (``cuobjdump -sass``);
 2. every kernel against its plain PyTorch version on the card, at each
    shape one serving request (batch ``B``), one train step (batch
@@ -131,7 +132,13 @@ Phases; any failure exits non-zero and prints no result line:
      ``easy``, ``median`` and ``hard`` with their tables; one crop of 2
      clouds, its FPS and the forward against the CPU through the plain
      versions (centres, orders, kept clouds and picks equal; clouds as sets
-     and CD-L1 within phase 3's band);
+     and CD-L1 within phase 3's band); the train loader through the native
+     reader and through the Python parsers (``IO.use_native``), each at 0
+     workers and ``LOADER_WORKERS`` threads, ``NATIVE_ROUNDS`` rounds of a
+     whole epoch each (:func:`native_reader_check`): the batches bit-equal
+     across all, the host ms a batch of each, and the median step fed by
+     each reader's threads; then ``NATIVE_PROCESS_TRIALS`` fresh loaders of
+     2 worker processes through the native reader, bit-equal too;
    - the KITTI finetune (``cfgs/KITTI_models/AdaPoinTr.yaml``: PCN cars, the
      ``CARS`` filter): 1 warm-up and ``TRAIN_STEPS`` steps at batch 16 with
      the train dropping (the table adds its FPS, 16 x 2048 -> 768, and its
@@ -229,6 +236,12 @@ SnowFlakeNet's widths (C 3, 64, 128) and at GRNet's volumes (32³ x 32, 16³
 x 64, 8³ x 128, the 2048 + 64³ sampled rows) and the gridding's scatter
 at C = 1 into 64³ rows.
 
+   Phase 9 also serves GRNet with ``eval_sampling: random``
+   (:func:`grnet_random_eval_check`, on cuDNN's deterministic algorithms):
+   a request without a generator raises, two requests from one generator
+   seed are bit-equal, two seeds differ, and the shapes are the fixed
+   mode's.
+
 10. the entry points on the card (:func:`entry_points_phase`), at full
    width:
    a. the serving CLI (``tools/inference.py``) on
@@ -238,8 +251,9 @@ at C = 1 into 64³ rows.
       imports): every ``fine.npy`` bit-equal to the model's own forward on
       the upsampled cloud (``.txt`` within ``TXT_ATOL``; ``np.savetxt``
       writes 19 digits), the launches those of a request at batch 1 without
-      the metrics, per file; then ``PCReconstructor`` on the same ``.pth``,
-      one request, its table the same;
+      the metrics, per file; the CLI again with ``--native_reader``, every
+      ``fine.npy`` the same bits; then ``PCReconstructor`` on the same
+      ``.pth``, one request, its table the same;
    b. ``PCReconstructor`` on the superset
       (``ImgEncSegDecAdaPoinTrVariableLoss``, seeded weights saved as
       ``.pth``): a ``.pcd`` cloud, a ``.png`` image (where PIL imports; else
@@ -302,6 +316,33 @@ at C = 1 into 64³ rows.
    (``B_TRAIN``) shapes: the ``pn`` grouper's FPS 2048 -> 256 and k = 32
    search, the denoise targets at k = 64, the argmin at 32768 x 16384.
 
+12. the multi-GPU layer (:func:`parallel_phase`), in processes started by
+   ``torch.multiprocessing`` (spawn) after the kernels and the native
+   reader are built here, on the flagship at full width from one seeded
+   state, one global batch of ``B_TRAIN`` and one denoise draw:
+   a. a world of one rank over NCCL (:func:`nccl_world_one`): the train
+      step through every collective at width 1 bit-equal to the plain step
+      in the same process (loss, every gradient, every updated parameter);
+   b. two ranks on the one card over gloo (:func:`parallel_rank`; NCCL
+      refuses two ranks on one device), dp = 2 with 8 a rank: the loss
+      within ``PARALLEL_LOSS_REL`` and the gradient norm within
+      ``PARALLEL_GRAD_NORM_REL`` (relative) of the one process's step at
+      16, every parameter and BN buffer bit-equal between the ranks after
+      the update, and a second step from the same state the same bits;
+   c. sp = 2: the same step with the chamfer losses on the point axis, the
+      loss within ``SP_LOSS_REL``; the sharded argmin's picks at 16 x 16384
+      x 16384, ``sharded_knn`` (``SP_KNN``) and ``sharded_fps``
+      (``SP_FPS``) index-equal to the kernels alone;
+   d. tp = 2: the step, loss and gradient norm in (b)'s bands;
+   e. the flagship encoder in ``PIPE_STAGES`` stages and ``PIPE_MICRO``
+      microbatches (block 0 whole on each rank, the tail's five blocks in
+      stages of 3 and 2): the output, and the gradient of every parameter
+      of block 0 and of the rank's own stage, bit-equal to the blocks in
+      sequence, and no gradient on another stage's parameters;
+   then whether gloo takes ``all_gather`` on CUDA tensors (phase 12 runs
+   all_reduce and broadcast only). Each rank's step time is printed; two
+   ranks that share one card say nothing about scaling.
+
 Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.
 """
@@ -327,6 +368,7 @@ import torch
 
 from imgadapointr_tpu_torch import ops
 from imgadapointr_tpu_torch.datasets import SyntheticPCN
+from imgadapointr_tpu_torch.datasets import native_io
 from imgadapointr_tpu_torch.datasets.loader import base_seed
 from imgadapointr_tpu_torch.datasets.synthetic import _surface_points
 from imgadapointr_tpu_torch.demo import PCReconstructor
@@ -371,6 +413,8 @@ KITTI = "cfgs/KITTI_models/AdaPoinTr.yaml"
 B_SHAPENET = 64
 N_SHAPENET = 8192
 B_VAL = 2  # phase 8's --val_bs
+NATIVE_ROUNDS = 4  # phase 8: rounds of the readers' whole-epoch readings, in turns
+NATIVE_PROCESS_TRIALS = 4  # phase 8: fresh 2-process loaders reading an epoch through the native reader
 DROP_POINTS = 768  # the dropping's FPS prefix (ops/sampling.py:random_dropping)
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s,
 # float32 outside the tensor cores, and dense bf16 products with float32
@@ -3299,9 +3343,81 @@ def shapenet_recipe(seed: int, dev, root: str, workdir: str):
     log(f"phase 8: the ShapeNet-55 8-viewpoint test on {EVAL_CLOUDS} clouds at batch {B_VAL}: " + json.dumps(tests))
     summary["test"] = tests
     summary["card_vs_cpu"] = shapenet_card_vs_cpu(runner, next(iter(test_loader))[2]["gt"], seed, dev)
+    summary["readers"] = native_reader_check(runner, config, seed)
     del runner
     torch.cuda.empty_cache()
     return counts, summary
+
+
+def native_reader_check(runner, config, seed: int) -> dict:
+    """Phase 8: the ShapeNet-55 train loader at ``B_SHAPENET`` through the
+    native reader (``datasets/native_io.py``) and through the Python parsers
+    (``IO.use_native = False``), each at 0 workers and ``LOADER_WORKERS``
+    threads, ``NATIVE_ROUNDS`` rounds in turns. A reading is a whole epoch;
+    every reading's batches are bit-equal to the first's; the host ms a
+    batch of each reading, and the median of an epoch's train steps fed by
+    each reader's threads, the wait for the loader included (one a round).
+    Then ``NATIVE_PROCESS_TRIALS`` fresh loaders of 2 worker processes read
+    the epoch through the native reader, bit-equal too: the setup in which
+    the reader's first (iostream) version was seen to crash."""
+    summary = {"batch": B_SHAPENET, "threads": LOADER_WORKERS, "rounds": NATIVE_ROUNDS}
+    default, ref = IO.use_native, None
+
+    def read_epoch(loader, key: str) -> float:
+        nonlocal ref
+        loader.set_epoch(1)
+        t0 = time.perf_counter()
+        batches = [b for _, _, b in loader]
+        ms = (time.perf_counter() - t0) / len(batches) * 1e3
+        ref = batches if ref is None else ref
+        require(len(batches) == len(ref), f"phase 8: the {key} loader gave {len(batches)} batches, not {len(ref)}")
+        for b, (x, y) in enumerate(zip(batches, ref)):
+            require(x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x),
+                    f"phase 8: batch {b} of the {key} loader differs from the native reader's at 0 workers")
+        return ms
+
+    try:
+        for _ in range(NATIVE_ROUNDS):  # in turns, so that the host's drift falls on both readers alike
+            for reader in ("native", "python"):
+                IO.use_native = reader == "native"
+                for workers in (0, LOADER_WORKERS):
+                    args = types.SimpleNamespace(seed=seed, num_workers=workers, worker_mode="thread")
+                    _, loader = dataset_builder(args, config.dataset.train)
+                    try:
+                        summary.setdefault(f"{reader}_loader_ms_per_batch_{workers}_workers", []).append(
+                            read_epoch(loader, f"{reader} {workers}-thread"))
+                        if workers:
+                            loader.set_epoch(2)
+                            times = []
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            for i, (_, _, batch) in enumerate(loader):
+                                runner.train_step(batch, 2.0 + i / 10)
+                                torch.cuda.synchronize()
+                                times.append(time.perf_counter() - t0)
+                                t0 = time.perf_counter()
+                            summary.setdefault(f"{reader}_median_step_ms_fed_by_{workers}_threads", []).append(
+                                statistics.median(times) * 1e3)
+                    finally:
+                        loader.close()
+        IO.use_native = True
+        for _ in range(NATIVE_PROCESS_TRIALS):
+            args = types.SimpleNamespace(seed=seed, num_workers=2, worker_mode="process")
+            _, loader = dataset_builder(args, config.dataset.train)
+            try:
+                t0 = time.perf_counter()
+                read_epoch(loader, "native 2-process")
+                summary.setdefault("native_2_process_epoch_s", []).append(time.perf_counter() - t0)
+            finally:
+                loader.close()
+    finally:
+        IO.use_native = default
+    summary["batches_a_reading"] = len(ref)
+    summary["spread"] = {k: [min(v), statistics.median(v), max(v)] for k, v in summary.items() if isinstance(v, list)}
+    summary["equal"] = True
+    log("phase 8: the ShapeNet-55 loader, native reader against the Python parsers (each list one value a "
+        "round; spread: min, median, max): " + json.dumps(summary))
+    return summary
 
 
 def shapenet_card_vs_cpu(runner, gts, seed: int, dev) -> dict:
@@ -3666,6 +3782,7 @@ def baseline_phase(name: str, seed: int, dev, card: str, root: str, workdir: str
                                           "profiled_request": {k: v for k, v in det_prof.items() if k != "top"}}
         log("phase 9: GRNet: requests on cuDNN's deterministic algorithms: "
             + json.dumps(cudnn["request_deterministic"]))
+        cudnn["eval_sampling_random"] = grnet_random_eval_check(model, cfg, requests[1], dev)
     del model
     torch.cuda.empty_cache()
 
@@ -3722,6 +3839,37 @@ def baseline_phase(name: str, seed: int, dev, card: str, root: str, workdir: str
     if cudnn:
         summary["cudnn"] = cudnn
     return counts, summary
+
+
+def grnet_random_eval_check(model, cfg, batch: dict, dev) -> dict:
+    """Phase 9, GRNet's ``eval_sampling: random``: a request without a
+    generator raises; two requests from one generator seed are bit-equal
+    (on cuDNN's deterministic algorithms: the default ones give a request
+    other bits on each run, whatever it draws), two seeds differ, and the
+    shapes are the fixed mode's."""
+    x = model_args(model, batch, dev)
+    model.eval_sampling = "random"
+    try:
+        with torch.inference_mode(), deterministic_cudnn():
+            try:
+                model(*x)
+                raised = False
+            except ValueError:
+                raised = True
+            outs = [model(*x, generator=torch.Generator(device=dev).manual_seed(s)) for s in (1, 1, 2)]
+    finally:
+        model.eval_sampling = "fixed"
+    n = len(batch["partial"])
+    out = {"raises_without_generator": raised,
+           "same_seed_equal": all(torch.equal(a, b) for a, b in zip(outs[0], outs[1])),
+           "seeds_differ": not torch.equal(outs[0][1], outs[2][1]),
+           "shapes": [list(t.shape) for t in outs[0]]}
+    log("phase 9: GRNet eval_sampling random: " + json.dumps(out))
+    require(raised and out["same_seed_equal"] and out["seeds_differ"]
+            and out["shapes"] == [[n, int(cfg.num_pred) // 8, 3], [n, int(cfg.num_pred), 3]],
+            f"GRNet eval_sampling random: {out}")
+    require(all(bool(torch.isfinite(t).all()) for t in outs[2]), "GRNet eval_sampling random: non-finite output")
+    return out
 
 
 def k2_check(seed: int, workdir: str) -> dict:
@@ -3848,6 +3996,16 @@ def cli_check(seed: int, dev, workdir: str) -> tuple:
             require(txt_err <= TXT_ATOL, f"CLI .txt: {txt_err} from the model's own forward")
         else:
             require(np.array_equal(fine, want), f"CLI .{ext}: fine.npy differs from the model's own forward")
+    default = IO.use_native
+    try:  # --native_reader: every file's answer the same bits
+        port_inference.main(argv[:-3] + [out + "_native", "--device", dev.type, "--native_reader"])
+        require(IO.use_native, "the CLI's --native_reader did not set IO.use_native")
+    finally:
+        IO.use_native = default
+    for ext in formats:
+        require(np.array_equal(np.load(os.path.join(out + "_native", f"cloud_{ext}", "fine.npy")),
+                               np.load(os.path.join(out, f"cloud_{ext}", "fine.npy"))),
+                f"CLI .{ext}: --native_reader changes fine.npy")
     rec = PCReconstructor(CONFIG, ckpt, device=dev.type)
     pcd = os.path.join(root, "cloud_pcd.pcd")
     rec.predict(pcd)  # warm-up
@@ -4066,6 +4224,337 @@ def entry_points_phase(seed: int, dev, card: str, shapenet_step_ms) -> tuple:
     return counts, {"cli": cli, "reconstructor_superset": rec, "profile": prof, "worker_modes": loaders}
 
 
+# ----------------------------------------------------------- phase 12 path
+PARALLEL_TIMEOUT = 420  # s: the parent stops phase 12's processes after this
+PARALLEL_LOSS_REL = 1e-4  # dp = 2 and tp = 2 against one process (phase 3's card-vs-CPU band)
+PARALLEL_GRAD_NORM_REL = 1e-3
+SP_LOSS_REL = 1e-5
+PIPE_STAGES, PIPE_MICRO = 2, 4
+SP_KNN = (16, 2048)  # sharded_knn: k over points
+SP_FPS = (8, 16384, 2048)  # sharded_fps: batch, points, picks
+PARALLEL_DEVICE = "cuda"  # phase 12's processes use card 0
+
+
+def parallel_batch(cfg, seed: int) -> tuple:
+    """The global train batch of phase 12 (``B_TRAIN`` synthetic clouds, on
+    the host) and its denoise noise, the same in every process."""
+    batch = {k: torch.from_numpy(v) for k, v in make_requests(cfg, seed + 40, 1, B_TRAIN)[0].items()}
+    noise = torch.randn(B_TRAIN, DENOISE, 3, generator=torch.Generator().manual_seed(seed + 41))
+    return batch, noise
+
+
+def parallel_runner(seed: int, workdir: str, tp: int = 1, sp: int = 1):
+    args = types.SimpleNamespace(device=PARALLEL_DEVICE, seed=seed, experiment_path=workdir, tp=tp, sp=sp)
+    runner = port_runner.Runner(args, cfg_from_yaml_file(CONFIG), logger="silent")
+    runner.make_train_state(100)
+    return runner
+
+
+def _parallel_device() -> torch.device:
+    dev = torch.device(PARALLEL_DEVICE, 0) if PARALLEL_DEVICE == "cuda" else torch.device(PARALLEL_DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def parallel_load(runner, state: dict) -> None:
+    """``state`` (whole tensors) into the runner, with a fresh optimizer."""
+    with runner.tp.unsharded():
+        runner.model.load_state_dict(state, strict=True)
+    runner.make_train_state(100)
+    runner.step = 0
+
+
+def step_readings(runner, batch, noise) -> dict:
+    """One timed train step: losses, its ms, its launches, and whole copies
+    of every gradient and parameter after the update."""
+    _build.reset_launches()
+    secs, m = timed_step(runner, batch, 0.0, noise=noise)
+    launches = _build.launches()
+    with runner.tp.unsharded(runner.optimizer):
+        grads = {n: p.grad.detach().clone() for n, p in runner.model.named_parameters() if p.grad is not None}
+        params = {n: p.detach().clone() for n, p in runner.model.named_parameters()}
+        buffers = {n: b.detach().clone() for n, b in runner.model.named_buffers()}
+    return {"ms": secs * 1e3, "metrics": m, "launches": launches, "grads": grads, "params": params,
+            "buffers": buffers}
+
+
+def _bit_equal(a: dict, b: dict) -> list:
+    """The names whose tensors differ in a bit (or are missing)."""
+    return sorted(n for n in set(a) | set(b) if n not in a or n not in b or not torch.equal(a[n], b[n]))
+
+
+def nccl_world_one(seed: int, workdir: str, port: int) -> None:
+    """Phase 12 (a), its own process: the plain step at ``B_TRAIN``, then
+    the same step from the same state in a world of one rank over NCCL
+    (every collective at width 1): loss, every gradient and every updated
+    parameter bit-equal. Writes ``nccl.json``."""
+    import torch.distributed as tdist
+
+    _parallel_device()
+    cfg = cfg_from_yaml_file(CONFIG).model
+    batch, noise = parallel_batch(cfg, seed)
+    plain = parallel_runner(seed, workdir)
+    state = {k: v.clone() for k, v in plain.model.state_dict().items()}
+    timed_step(plain, batch, 0.0, noise=noise)  # warm-up
+    parallel_load(plain, state)
+    a = step_readings(plain, batch, noise)
+    del plain
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        ranked = parallel_runner(seed, workdir)
+        require(ranked.mesh.world.active and ranked.mesh.size == 1, "phase 12: no NCCL world of one")
+        parallel_load(ranked, state)
+        timed_step(ranked, batch, 0.0, noise=noise)  # warm-up (NCCL's communicator starts here)
+        parallel_load(ranked, state)
+        b = step_readings(ranked, batch, noise)
+    finally:
+        tdist.destroy_process_group()
+    out = {"backend": "nccl", "plain_ms": a["ms"], "ranked_ms": b["ms"], "metrics": a["metrics"],
+           "metrics_equal": a["metrics"] == b["metrics"], "grads_differ": _bit_equal(a["grads"], b["grads"]),
+           "params_differ": _bit_equal(a["params"], b["params"]), "n_grads": len(a["grads"]),
+           "launches_plain": a["launches"], "launches_ranked": b["launches"]}
+    with open(os.path.join(workdir, "nccl.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _ranks_equal(readings: dict, group) -> list:
+    """The names of the tensors of ``readings`` (name -> tensor) that
+    differ between rank 0 and this rank (rank 0's broadcast to the group)."""
+    from imgadapointr_tpu_torch.parallel.dist import broadcast
+
+    return sorted(n for n, t in readings.items() if not torch.equal(broadcast(t.contiguous(), group, 0), t))
+
+
+def gloo_all_gather(group) -> str:
+    """Whether gloo takes ``all_gather`` on CUDA tensors (phase 12 itself
+    runs all_reduce and broadcast only): "ok", or what the backend says.
+    ``send`` / ``recv`` are not tried: on CUDA tensors gloo's TCP transport
+    aborts the process (``writev ... Bad address``, PERF.md §6)."""
+    import torch.distributed as tdist
+
+    t = torch.full((4,), float(group.rank + 1), device=PARALLEL_DEVICE)
+    try:
+        parts = [torch.empty_like(t) for _ in range(group.size)]
+        tdist.all_gather(parts, t, group=group.handle)
+    except Exception as e:  # noqa: BLE001 (the check reports what the backend says)
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return "ok" if [float(p[0]) for p in parts] == [float(r + 1) for r in range(group.size)] else "wrong values"
+
+
+def parallel_rank(rank: int, seed: int, workdir: str, port: int) -> None:
+    """Phase 12 (b-e), one of two ranks on the one card over gloo: the
+    train step at dp = 2 (8 a rank), sp = 2 and tp = 2 from one state, the
+    sharded ops against the kernels alone, the encoder's pipeline. Writes
+    ``rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    from imgadapointr_tpu_torch.ops import sharded
+    from imgadapointr_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from imgadapointr_tpu_torch.parallel.pipeline import encoder_pipeline_apply, make_pipe_mesh
+
+    dev = _parallel_device()
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank,
+                             timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT))
+    out = {}
+    try:
+        cfg = cfg_from_yaml_file(CONFIG).model
+        batch, noise = parallel_batch(cfg, seed)
+        state = None
+        for mode, (tp, sp) in (("dp", (1, 1)), ("sp", (1, 2)), ("tp", (2, 1))):
+            runner = parallel_runner(seed, workdir, tp, sp)
+            if state is None:
+                state = {k: v.clone() for k, v in runner.model.state_dict().items()}
+            local = shard_batch(batch, runner.mesh, strict=True)
+            parallel_load(runner, state)
+            timed_step(runner, local, 0.0, noise=noise)  # warm-up
+            parallel_load(runner, state)
+            a = step_readings(runner, local, noise)
+            readings = {"ms": a["ms"], "metrics": a["metrics"], "launches": a["launches"],
+                        "batch_a_rank": len(local["partial"]), "sliced": len(runner.tp.sliced),
+                        "ranks_differ": _ranks_equal({**a["params"], **a["buffers"]}, runner.mesh.world)}
+            if mode == "dp":  # a second step from the same state: the same bits
+                parallel_load(runner, state)
+                b = step_readings(runner, local, noise)
+                readings["repeat_differs"] = _bit_equal(a["params"], b["params"]) + _bit_equal(a["grads"], b["grads"])
+                readings["repeat_ms"] = b["ms"]
+            out[mode] = readings
+            log(f"phase 12 rank {rank}: {mode}: step {a['ms']:.1f} ms, loss {a['metrics']['total_loss']:.6f}, "
+                f"grad norm {a['metrics']['grad_norm']:.5f}")
+            del runner, a
+            torch.cuda.empty_cache()
+
+        # the point-axis ops against the kernels alone, at the step's shapes
+        group = make_mesh(sp=2).points
+        g = torch.Generator(device=dev).manual_seed(seed + 42)
+        x = torch.randn(B_TRAIN, N_GT, 3, generator=g, device=dev)
+        y = torch.randn(B_TRAIN, N_GT, 3, generator=g, device=dev)
+        _build.reset_launches()
+        _, _, i1, i2 = sharded.sharded_nn_distance(sharded.shard_points(x, group), sharded.shard_points(y, group),
+                                                   group)
+        w1, w2 = chamfer.nn_bidir_argmin(x, y)
+        k, n = SP_KNN
+        pts = torch.randn(B, n, 3, generator=g, device=dev)
+        knn = sharded.sharded_knn(k, sharded.shard_points(pts, group), sharded.shard_points(pts, group), group)
+        b, n, picks = SP_FPS
+        cloud = torch.randn(b, n, 3, generator=g, device=dev)
+        fps_idx = sharded.sharded_fps(sharded.shard_points(cloud, group), picks, group)
+        torch.cuda.synchronize()
+        out["sharded_ops"] = {
+            "chamfer_picks_equal": bool(torch.equal(i1, w1.chunk(2, 1)[group.rank])
+                                        and torch.equal(i2, w2.chunk(2, 1)[group.rank])),
+            "knn_equal": bool(torch.equal(knn, pointops.knn_point(k, pts, pts).chunk(2, 1)[group.rank])),
+            "fps_equal": bool(torch.equal(fps_idx, pointops.furthest_point_sample(cloud, picks))),
+            "launches": _build.launches()}
+
+        # the flagship encoder's blocks in two stages of four microbatches
+        pmesh = make_pipe_mesh(pipe=PIPE_STAGES)
+        model = build_model(cfg, device=dev, seed=seed)
+        enc = model.base_model.encoder.train()
+        tokens = int(cfg.center_num[-1])
+        xe = torch.randn(B_TRAIN, tokens, int(cfg.encoder_config.embed_dim), generator=g, device=dev)
+        pos = torch.randn(B_TRAIN, tokens, 3, generator=g, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yp = encoder_pipeline_apply(enc, xe, pos, pmesh, microbatches=PIPE_MICRO)
+        (yp * yp).sum().backward()
+        torch.cuda.synchronize()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        pipe_grads = {n: p.grad.clone() for n, p in enc.named_parameters() if p.grad is not None}
+        enc.zero_grad(set_to_none=True)
+        blocks = list(enc.blocks.blocks)
+        h0 = blocks[0](xe, pos, idx=pointops.knn_point(enc.k, pos, pos))
+        h0d = h0.detach().requires_grad_()
+        ys = []
+        for hm in h0d.chunk(PIPE_MICRO):
+            h = hm
+            for blk in blocks[1:]:
+                h = blk(h, None)
+            (h * h).sum().backward()
+            ys.append(h.detach())
+        h0.backward(h0d.grad)
+        seq = {n: p.grad for n, p in enc.named_parameters() if p.grad is not None}
+        # by ownership: this rank's stage's blocks of the tail, and block 0, which every rank runs
+        own = np.array_split(np.arange(1, len(blocks)), PIPE_STAGES)[pmesh.coords[1]].tolist()
+        mine = [n for n in seq if n.startswith("blocks.blocks.") and int(n.split(".")[2]) in [0, *own]]
+        out["pipeline"] = {
+            "stage": pmesh.coords[1], "blocks": len(blocks), "stage_blocks": own, "ms": pipe_ms,
+            "forward_equal": bool(torch.equal(yp, torch.cat(ys))),
+            "stage_grads": sum(not n.startswith("blocks.blocks.0.") for n in mine),
+            "grads_outside_stage": sorted(set(pipe_grads) - set(mine)),
+            "stage_grads_differ": [n for n in mine if n not in pipe_grads or not torch.equal(pipe_grads[n], seq[n])]}
+        del model, enc
+        out["gloo_all_gather_cuda"] = gloo_all_gather(make_mesh().world)
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _run_spawned(target, arg_sets: list, what: str) -> None:
+    """Start ``target(*args)`` for each ``args`` in spawned processes and
+    wait for them all (``PARALLEL_TIMEOUT``); a process that fails or
+    overruns fails the phase, and every process is stopped."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args) for args in arg_sets]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PARALLEL_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    require(all(c == 0 for c in codes), f"phase 12: {what} exited {codes}")
+
+
+def parallel_phase(seed: int, card: str):
+    """Phase 12: the multi-GPU layer on the one card (see the module
+    docstring); returns the launch counts of its paths and its summary."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        _run_spawned(nccl_world_one, [(seed, workdir, _free_port())], "the NCCL world of one")
+        with open(os.path.join(workdir, "nccl.json")) as f:
+            nccl = json.load(f)
+        log(f"phase 12: world of one over NCCL on {card}: plain step {nccl['plain_ms']:.1f} ms, ranked "
+            f"{nccl['ranked_ms']:.1f} ms; metrics equal {nccl['metrics_equal']}; gradients differing "
+            f"{nccl['grads_differ'][:5]} of {nccl['n_grads']}; parameters differing {nccl['params_differ'][:5]}")
+        require(nccl["metrics_equal"] and not nccl["grads_differ"] and not nccl["params_differ"],
+                "phase 12: the NCCL world of one is not bit-equal to the plain step")
+        port = _free_port()
+        _run_spawned(parallel_rank, [(r, seed, workdir, port) for r in range(2)], "the two gloo ranks")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    one = nccl["metrics"]
+    summary = {"nccl_world_one": {k: nccl[k] for k in ("plain_ms", "ranked_ms", "n_grads")},
+               "gloo_all_gather_cuda": [r["gloo_all_gather_cuda"] for r in ranks]}
+    counts = {"parallel_nccl_step": nccl["launches_ranked"]}
+    for mode, loss_band in (("dp", PARALLEL_LOSS_REL), ("sp", SP_LOSS_REL), ("tp", PARALLEL_LOSS_REL)):
+        r0, r1 = ranks[0][mode], ranks[1][mode]
+        loss_rel = abs(r0["metrics"]["total_loss"] - one["total_loss"]) / abs(one["total_loss"])
+        norm_rel = abs(r0["metrics"]["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+        summary[mode] = {"ms_a_step": [r0["ms"], r1["ms"]], "batch_a_rank": r0["batch_a_rank"],
+                         "loss_rel_diff": loss_rel, "grad_norm_rel_diff": norm_rel,
+                         "sliced_leaves": r0["sliced"], "ranks_differ": len(r1["ranks_differ"])}
+        log(f"phase 12: {mode} = 2 on one {card} over gloo: step {r0['ms']:.1f} / {r1['ms']:.1f} ms a rank "
+            f"(two ranks share the card: no scaling reading); loss {r0['metrics']['total_loss']:.7f} against "
+            f"{one['total_loss']:.7f} ({loss_rel:.2e} relative), grad norm {norm_rel:.2e} relative; "
+            f"parameters and BN buffers differing between the ranks: {r1['ranks_differ'][:5]}")
+        require(r0["metrics"] == r1["metrics"], f"phase 12: {mode}: the ranks log different losses")
+        require(not r1["ranks_differ"], f"phase 12: {mode}: the ranks' states differ after the update")
+        require(loss_rel <= loss_band, f"phase 12: {mode}: the loss is {loss_rel:.2e} from one process's")
+        if mode != "sp":
+            require(norm_rel <= PARALLEL_GRAD_NORM_REL, f"phase 12: {mode}: the gradient norm is {norm_rel:.2e} off")
+        counts[f"parallel_{mode}_step"] = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+    require(ranks[0]["dp"]["batch_a_rank"] == B_TRAIN // 2, "phase 12: dp: not half the batch a rank")
+    require(ranks[0]["tp"]["sliced"] > 0, "phase 12: tp: no leaf sharded")
+    for r in ranks:
+        require(not r["dp"]["repeat_differs"], f"phase 12: dp: a second step from one state differs: "
+                f"{r['dp']['repeat_differs'][:5]}")
+        ops_ = r["sharded_ops"]
+        require(ops_["chamfer_picks_equal"] and ops_["knn_equal"] and ops_["fps_equal"],
+                f"phase 12: the sharded ops disagree with the kernels alone: {ops_}")
+        pipe = r["pipeline"]
+        require(pipe["forward_equal"] and pipe["stage_grads"] > 0 and not pipe["stage_grads_differ"]
+                and not pipe["grads_outside_stage"],
+                f"phase 12: the pipeline differs from the blocks in sequence: {pipe}")
+    summary["dp"]["repeat_ms"] = [r["dp"]["repeat_ms"] for r in ranks]
+    summary["sharded_ops"] = {"chamfer": f"{B_TRAIN} x {N_GT} x {N_GT}", "knn": SP_KNN, "fps": SP_FPS,
+                              "equal": True}
+    summary["pipeline"] = {"stages": PIPE_STAGES, "microbatches": PIPE_MICRO,
+                           "ms": [r["pipeline"]["ms"] for r in ranks],
+                           "stage_blocks": [r["pipeline"]["stage_blocks"] for r in ranks],
+                           "stage_grads": [r["pipeline"]["stage_grads"] for r in ranks]}
+    counts["parallel_sharded_ops"] = {k: sum(r["sharded_ops"]["launches"][k] for r in ranks)
+                                      for k in ranks[0]["sharded_ops"]["launches"]}
+    sp_launches = counts["parallel_sp_step"]
+    require(sp_launches["nn_one_direction"] > 0, "phase 12: sp: no chamfer ran on the point axis")
+    log(f"phase 12: gloo's all_gather on CUDA tensors: {summary['gloo_all_gather_cuda']}")
+    log(f"phase 12 on {card}: " + json.dumps(summary))
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return counts, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4087,6 +4576,9 @@ def main(argv=None) -> int:
     _build.library()
     log(f"phase 1: built {len(_build.KERNELS)} kernels in {time.perf_counter() - t0:.1f} s "
         f"({_build.build()})")
+    t0 = time.perf_counter()
+    native_io.library()
+    log(f"phase 1: built the native point-cloud reader in {time.perf_counter() - t0:.1f} s ({native_io.build()})")
     hmma = mxu_hmma(_build.build())
     log(f"phase 1: the matmul-form kernel's SASS holds {hmma} HMMA instructions")
     require(hmma > 0, "the matmul-form kernel does not run on the tensor cores")
@@ -4267,6 +4759,10 @@ def main(argv=None) -> int:
     options_counts, options_summary = options_phase(args.seed, dev, card)
     counts.update(options_counts)
 
+    # ---- phase 12: the multi-GPU layer (a world of one over NCCL, two ranks on the card over gloo)
+    parallel_counts, parallel_summary = parallel_phase(args.seed, card)
+    counts.update(parallel_counts)
+
     kernels = []
     for name in _build.KERNELS:
         err, t, n_ops, nbytes = results[name]
@@ -4305,6 +4801,7 @@ def main(argv=None) -> int:
                                        "train_step": counts[f"{b}_train"][name] // BASELINE_STEPS,
                                        "validate": counts[f"{b}_validate"][name], "test": counts[f"{b}_test"][name]}
                                    for b in BASELINES},
+            "launches_parallel": {path: counts[path][name] for path in parallel_counts},
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
@@ -4325,7 +4822,8 @@ def main(argv=None) -> int:
                                   "superset_training": superset_train_summary,
                                   "deform": deform_summary | {"grouped_deform_gather": grouped_gather},
                                   "recipes": recipes_summary, "baselines": baselines_summary,
-                                  "entry_points": entry_summary, "options": options_summary}))
+                                  "entry_points": entry_summary, "options": options_summary,
+                                  "parallel": parallel_summary}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,17 +16,31 @@ Training writes TensorBoard scalars under ``args.tfboard_path`` (``train/``
 and ``test/``) through ``tensorboardX`` where it imports, else
 ``torch.utils.tensorboard`` where ``tensorboard`` imports, else none, as
 ``main.py:86-99`` of the JAX package does.
+
+On several GPUs, one process a card::
+
+    torchrun --nproc_per_node 8 -m imgadapointr_tpu_torch.main --launcher pytorch \\
+        --config cfgs/PCN_models/AdaPoinTr.yaml --exp_name run0 [--tp 2] [--sp 2]
+
+:func:`init_distributed` joins the processes (NCCL on ``cuda:LOCAL_RANK``,
+gloo under ``--device cpu``); each seeds its host generators with ``seed +
+rank`` (JAX ``main.py:68``), and rank 0 alone logs and writes the
+TensorBoard scalars (JAX ``main.py:89``).
 """
 
 from __future__ import annotations
 
 import os
+import random
 import time
 
+import numpy as np
 import torch
+import torch.distributed as tdist
 
 from .tools.runner import run_net, test_net
 from .utils.config import get_config
+from .utils.io_module import IO
 from .utils.logger import get_logger, print_log
 from .utils.parser import get_args
 
@@ -68,13 +82,46 @@ def make_writers(args) -> tuple:
             SummaryWriter(os.path.join(args.tfboard_path, "test")))
 
 
+def init_distributed(args) -> int:
+    """Join the ranks of a ``torchrun`` / ``--launcher pytorch`` launch:
+    ``torch.distributed`` from the environment, NCCL on
+    ``cuda:LOCAL_RANK`` (``args.device`` becomes that card), gloo under
+    ``--device cpu``. Returns this process's rank (0 without a launch)."""
+    if not getattr(args, "distributed", False):
+        return 0
+    os.environ.setdefault("MASTER_ADDR", "localhost")
+    os.environ.setdefault("MASTER_PORT", "29500")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    if torch.device(args.device).type == "cpu":
+        backend = "gloo"
+    else:
+        local_rank = int(os.environ.get("LOCAL_RANK", args.local_rank))
+        torch.cuda.set_device(local_rank)
+        args.device = f"cuda:{local_rank}"
+        backend = "nccl"
+    tdist.init_process_group(backend, init_method="env://", world_size=world, rank=rank)
+    return rank
+
+
 def main(argv=None):
     args = get_args(argv)
+    rank = init_distributed(args)
+    try:
+        return _main(args, rank)
+    finally:
+        if tdist.is_available() and tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def _main(args, rank: int):
     timestamp = time.strftime("%Y%m%d_%H%M%S", time.localtime())
     log_file = os.path.join(args.experiment_path, f"{timestamp}.log")
-    args.logger = logger = get_logger(args.log_name, log_file)
+    # rank 0 alone logs (its console and its file); the others keep quiet
+    args.logger = logger = get_logger(args.log_name, log_file) if rank == 0 else "silent"
 
     config = get_config(args)
+    IO.use_native = args.native_reader
     if args.synthetic:
         swap_synthetic(config, train_len=args.syn_train_len)
     config.dataset.train.others.bs = config.total_bs
@@ -86,13 +133,16 @@ def main(argv=None):
             kitti = split == "test" and config.dataset.test.get("NAME", "") == "KITTI"
             config.dataset[split].others.bs = 1 if kitti else max(1, args.val_bs)
 
-    torch.manual_seed(args.seed)
+    seed = args.seed + rank  # the host generators differ by rank, as JAX main.py:68 seeds them
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
     print_log(f"config: {config}", logger)
 
     if args.test:
         return test_net(args, config)
-    writers = make_writers(args)
-    if writers[0] is None:
+    writers = make_writers(args) if rank == 0 else (None, None)
+    if writers[0] is None and rank == 0:
         print_log("TensorBoard writers off: neither tensorboardX nor tensorboard imports", logger)
     try:
         return run_net(args, config, writers)

@@ -162,8 +162,8 @@ class GDANet(nn.Module):
         lin = getattr(self, conv)[0]
         C = x.shape[-1]
         w1, w2 = lin.weight[:, :C], lin.weight[:, C:]
-        u = F.linear(x, w1 + w2, lin.bias)
-        v = F.linear(x, w1)
+        u = lin.project(x, w1 + w2)
+        v = lin.project(x, w1, bias=False)
         idx, _, _ = _knn_desc(x, min(k, x.shape[1]))
         return getattr(self, self._bn[conv])(index_points(u, idx) - v[:, :, None, :])
 

@@ -19,8 +19,10 @@ The point sampling's uniform scores are an argument (``noise``), else a
 draw from ``generator`` in train mode. In eval mode they are fixed: drawn
 on the host from a CPU generator seeded 0 and moved to the device, so the
 card and the CPU pick the same subset (the JAX module's fixed key gives
-another). The JAX module's ``eval_sampling: random`` is not ported: a
-config that sets it is refused.
+another). With ``eval_sampling: random`` the eval scores are drawn from the
+generator the forward is handed, as the dropout masks are, and a forward
+without one raises (the JAX module draws them from its ``noise`` key, which
+the port does not reproduce: the CPU tests hand both the same scores).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import BatchNorm, Linear, leaky_relu
+from ..parallel.dist import global_draw
 from ..ops import gather_rows
 from ..ops.gridding import cubic_feature_sampling, gridding, gridding_reverse
 from .baselines import Baseline, register_baseline, set_bn_momentum
@@ -91,8 +94,9 @@ class DeconvBlock3D(nn.Module):
 class GRNet(Baseline):
     def __init__(self, config):
         super().__init__()
-        if str(config.get("eval_sampling", "fixed")) != "fixed":
-            raise ValueError("GRNet: only eval_sampling: fixed is ported")
+        self.eval_sampling = str(config.get("eval_sampling", "fixed"))
+        if self.eval_sampling not in ("fixed", "random"):
+            raise ValueError(f"GRNet: eval_sampling must be fixed|random, got {self.eval_sampling!r}")
         self.num_pred = int(config.num_pred)
         self.n_sparse = self.num_pred // 8
         self.conv1 = ConvBlock3D(1, 32)
@@ -114,8 +118,10 @@ class GRNet(Baseline):
                noise: torch.Tensor | None) -> torch.Tensor:
         if noise is not None:
             return noise.to(like)
-        if self.training:
-            return torch.rand(B, n, generator=generator, device=like.device, dtype=like.dtype)
+        if self.training or self.eval_sampling == "random":
+            if generator is None:
+                raise ValueError("GRNet: random point sampling needs a generator: pass one to the forward")
+            return global_draw(torch.rand, (B, n), generator=generator, device=like.device, dtype=like.dtype)
         return fixed_eval_scores(B, n, like.device, like.dtype)
 
     def forward(self, xyz: torch.Tensor, bn_momentum: float = 0.1,

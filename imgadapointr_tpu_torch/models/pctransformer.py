@@ -32,6 +32,7 @@ from ..nn.blocks import decoder_from_config, encoder_from_config
 from ..nn.grouper import DGCNNGrouper, SimpleEncoder
 from ..nn.image_encoders import ResNet18Encoder
 from ..nn.layers import ConcatDense, Linear
+from ..parallel.dist import global_draw
 from .fusion import SEG_FEATURES, AttentionFusion, image_tokens_width
 from .gdanet import GDANet
 
@@ -100,7 +101,7 @@ class PCTransformer(nn.Module):
         if self.training and noise is None:
             # the denoise jitter's draw comes first, then any dropout masks
             # in module order (jitter_points would draw the same tensor)
-            noise = torch.randn((B, DENOISE_LENGTH, 3), generator=generator, dtype=xyz.dtype,
+            noise = global_draw(torch.randn, (B, DENOISE_LENGTH, 3), generator=generator, dtype=xyz.dtype,
                                 device=xyz.device)
         coor, f = self.grouper(xyz, self.center_num)
         x = self.encoder(self.input_proj(f) + self.pos_embed(coor), coor)

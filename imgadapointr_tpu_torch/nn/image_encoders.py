@@ -35,7 +35,30 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Linear
+from ..parallel.dist import data_group
+from .layers import Linear, global_moments
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``torch.nn.BatchNorm2d`` (its state-dict names, cuDNN on one rank)
+    that, in train mode inside a data-parallel step over more than one rank
+    (``parallel/dist.py:data_parallel``), normalises by the global batch's
+    moments, taken in two passes over (N, H, W) (``nn/layers.py:global_moments``),
+    and updates its running statistics from them as torch does (unbiased
+    variance, the ``momentum`` of the call)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = data_group() if self.training else None
+        if group is None:
+            return super().forward(x)
+        mean, var, n = global_moments(x, (0, 2, 3), group)
+        with torch.no_grad():
+            m = float(self.momentum)
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+            self.num_batches_tracked += 1
+        y = (x - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
+        return y * self.weight[:, None, None] + self.bias[:, None, None]
 
 
 class BasicBlock(nn.Module):
@@ -45,13 +68,13 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cout)
+        self.bn1 = BatchNorm2d(cout)
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout)
+        self.bn2 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(nn.Conv2d(cin, cout, 1, stride=stride, bias=False),
-                                            nn.BatchNorm2d(cout))
+                                            BatchNorm2d(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -70,7 +93,7 @@ class ResNet18Encoder(nn.Module):
     def __init__(self):
         super().__init__()
         self.base = nn.Sequential(
-            nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False), nn.BatchNorm2d(64),
+            nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False), BatchNorm2d(64),
             nn.ReLU(), nn.MaxPool2d(3, stride=2, padding=1),
             _layer(64, 64, 1), _layer(64, 128, 2), _layer(128, 256, 2),
         )
@@ -100,15 +123,15 @@ class Bottleneck(nn.Module):
         super().__init__()
         cout = width * 4
         self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, cout, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(cout)
+        self.bn3 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(nn.Conv2d(cin, cout, 1, stride=stride, bias=False),
-                                            nn.BatchNorm2d(cout))
+                                            BatchNorm2d(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -130,7 +153,7 @@ class ResNet50Encoder(nn.Module):
     def __init__(self):
         super().__init__()
         self.base = nn.Sequential(
-            nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False), nn.BatchNorm2d(64),
+            nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False), BatchNorm2d(64),
             nn.ReLU(), nn.MaxPool2d(3, stride=2, padding=1),
             _bottleneck_layer(64, 64, 3, 1), _bottleneck_layer(256, 128, 4, 2),
             _bottleneck_layer(512, 256, 6, 2), _bottleneck_layer(1024, 512, 3, 2),

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.dist import all_gather, all_reduce, data_group, global_draw
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, torch's and the JAX package's default."""
@@ -45,6 +47,8 @@ class Linear(nn.Module):
     bias; see :func:`init_weights_`). ``kernel_dims`` appends 1-dims to the
     weight, the layout of a reference 1x1 Conv1d (1) or Conv2d (2)."""
 
+    tp = None  # the model group when the weight holds a slice of its rows (parallel/mesh.py)
+
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  kernel_dims: int = 0):
         super().__init__()
@@ -53,7 +57,18 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.reshape(self.out_features, self.in_features), self.bias)
+        return self.project(x, self.weight.reshape(-1, self.in_features))
+
+    def project(self, x: torch.Tensor, weight: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """``x weightᵀ (+ bias)`` for ``weight`` taken from this layer's
+        (columns of it, or a combination of such): under tensor
+        parallelism the product of the rank's rows, all-gathered, then the
+        whole bias."""
+        b = self.bias if bias else None
+        if self.tp is None:
+            return F.linear(x, weight, b)
+        y = all_gather(F.linear(x, weight), self.tp, dim=-1)
+        return y if b is None else y + b
 
 
 class ConcatDense(nn.Module):
@@ -71,16 +86,22 @@ class ConcatDense(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, sum(self.widths), *([1] * kernel_dims)))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
+    tp = None  # the model group when the weight holds a slice of its rows (parallel/mesh.py)
+
     def forward(self, *parts: torch.Tensor) -> torch.Tensor:
         if len(parts) != len(self.widths):
             raise ValueError(f"ConcatDense expects {len(self.widths)} parts, got {len(parts)}")
-        weight = self.weight.reshape(self.out_features, sum(self.widths))
+        weight = self.weight.reshape(-1, sum(self.widths))
         out, start = None, 0
         for i, (p, w) in enumerate(zip(parts, self.widths)):
-            y = F.linear(p, weight[:, start : start + w], self.bias if i == 0 else None)
+            bias = self.bias if i == 0 and self.tp is None else None
+            y = F.linear(p, weight[:, start : start + w], bias)
             out = y if out is None else out + y
             start += w
-        return out
+        if self.tp is None:
+            return out
+        out = all_gather(out, self.tp, dim=-1)  # the rank's rows of every part, summed, then gathered
+        return out if self.bias is None else out + self.bias
 
 
 def keep_mask(shape, keep: float, generator: torch.Generator | None,
@@ -92,7 +113,7 @@ def keep_mask(shape, keep: float, generator: torch.Generator | None,
     the global one. Raises without a generator, so no draw is hidden."""
     if generator is None:
         raise ValueError("dropout in train mode needs a generator: pass one to the model's forward")
-    return torch.rand(shape, generator=generator, dtype=torch.float32, device=device) < keep
+    return global_draw(torch.rand, shape, generator=generator, dtype=torch.float32, device=device) < keep
 
 
 class _Stochastic(nn.Module):
@@ -256,6 +277,8 @@ class MultiheadAttention(nn.Module):
     ``CrossAttention`` / ``Attention`` with ``qkv_bias=True``, the form its
     fusion stacks use (``imgadapointr_tpu/models/fusion.py:22-47``)."""
 
+    tp = None  # the model group when in_proj_weight holds a slice (parallel/mesh.py)
+
     def __init__(self, dim: int, num_heads: int = 8):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
@@ -270,11 +293,31 @@ class MultiheadAttention(nn.Module):
         w, b = self.in_proj_weight, self.in_proj_bias
 
         def heads(t, i, n):
-            t = F.linear(t, w[i * C:(i + 1) * C], b[i * C:(i + 1) * C])
+            if self.tp is None:
+                t = F.linear(t, w[i * C:(i + 1) * C], b[i * C:(i + 1) * C])
+            else:  # w holds the rank's rows of each of q, k and v
+                t = all_gather(F.linear(t, w.chunk(3, 0)[i]), self.tp, dim=-1) + b[i * C:(i + 1) * C]
             return t.reshape(B, n, H, C // H).transpose(1, 2)
 
         out = _sdpa(heads(x, 0, N), heads(mem, 1, M), heads(mem, 2, M), self.scale)
         return self.out_proj(out.transpose(1, 2).reshape(B, N, C))
+
+
+def global_moments(xs: torch.Tensor, axes: tuple, group):
+    """(mean, biased variance, count) over ``axes`` of the global batch
+    whose shards the ranks of ``group`` hold, in two passes as
+    :class:`BatchNorm` takes them on one rank: all-reduce ``(Σx, n)`` for
+    the mean, then ``Σ(x - mean)²`` for the variance. Gradients flow through
+    both all-reduces."""
+    n_local = xs.numel() // math.prod(xs.shape[a] for a in range(xs.dim()) if a not in axes)
+    count = torch.full((1,), float(n_local), dtype=xs.dtype, device=xs.device)
+    sums = all_reduce(torch.cat([xs.sum(dim=axes).reshape(-1), count]), group)
+    n = sums[-1]
+    keep = [xs.shape[a] for a in range(xs.dim()) if a not in axes]
+    mean = (sums[:-1] / n).reshape(keep)
+    shape = [1 if a in axes else xs.shape[a] for a in range(xs.dim())]
+    var = all_reduce((xs - mean.reshape(shape)).square().sum(dim=axes), group) / n
+    return mean, var, n_local * group.size  # the shards are equal (parallel/mesh.py:shard_batch)
 
 
 class BatchNorm(nn.Module):
@@ -290,7 +333,9 @@ class BatchNorm(nn.Module):
     folds, a global feature added to every point) loses four digits to that
     cancellation in float32. Biased for the normalisation, unbiased for the
     running update. Buffers match ``torch.nn.BatchNorm1d`` for state-dict
-    loading."""
+    loading. Inside a data-parallel train step over more than one rank
+    (``parallel/dist.py:data_parallel``) the statistics are the global
+    batch's (:func:`global_moments`), as under JAX's GSPMD."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -306,9 +351,13 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = tuple(range(x.dim() - 1))
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xs.mean(dim=axes)
-            var = (xs - mean).square().mean(dim=axes)
-            n = x.numel() // x.shape[-1]
+            group = data_group()
+            if group is None:
+                mean = xs.mean(dim=axes)
+                var = (xs - mean).square().mean(dim=axes)
+                n = x.numel() // x.shape[-1]
+            else:
+                mean, var, n = global_moments(xs, axes, group)
             with torch.no_grad():
                 m = float(self.momentum)
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)

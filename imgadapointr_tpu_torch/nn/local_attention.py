@@ -25,7 +25,6 @@ three ``nn.Dropout`` sites do; their ``attn_drop`` is unused there too.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops import index_points, knn_point, three_nn_interpolate_grouped
@@ -251,13 +250,13 @@ class DynamicGraphAttention(nn.Module):
             v_pos = q_pos if v_pos is None else v_pos
             if idx is None:
                 idx = knn_point(self.k, v_pos, q_pos)
-            local_u = index_points(F.linear(v, w[:, :C], lin.bias), idx)  # v W1 + b
+            local_u = index_points(lin.project(v, w[:, :C]), idx)  # v W1 + b
         else:
             if v is not None or v_pos is not None or idx is not None:
                 raise ValueError("DynamicGraphAttention: denoise mode is self-attention only")
-            u = F.linear(q, w[:, :C], lin.bias)
+            u = lin.project(q, w[:, :C])
             (local_u,) = two_phase_knn_gather(self.k, q_pos, q_pos, (u,), denoise_length)
-        c = F.linear(q, w[:, C:] - w[:, :C])  # q (W2 - W1)
+        c = lin.project(q, w[:, C:] - w[:, :C], bias=False)  # q (W2 - W1)
         out = leaky_relu(local_u + c[:, :, None])
         return out.amax(dim=2)
 

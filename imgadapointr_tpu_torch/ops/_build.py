@@ -5,7 +5,9 @@ Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) by its own
 with a plain C interface. The library is built at first use, into
 ``imgadapointr_tpu_torch/_build/<hash of the sources>/`` (listed in
 ``.gitignore``), and loaded with :mod:`ctypes`. Nothing here runs at import
-time, so the CPU-only test environment imports this module freely.
+time, so the CPU-only test environment imports this module freely. The
+build holds a file lock: processes that share a tree (two ranks, loader
+workers) build it once and load the same library.
 
 Each C entry point takes raw device pointers and the CUDA stream as
 ``void*``, launches on that stream without synchronising, and returns
@@ -15,7 +17,9 @@ the launch under the kernel's name.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -110,6 +114,24 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with _file_lock(BUILD_ROOT / f".{out_dir.name}.lock"):
+        if lib_path.exists():  # another process built it while this one waited
+            return lib_path
+        _compile(out_dir, lib_path)
+    return lib_path
+
+
+@contextlib.contextmanager
+def _file_lock(path: Path):
+    with open(path, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _compile(out_dir: Path, lib_path: Path) -> None:
     nvcc = nvcc_path()
     tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_ROOT))
     try:
@@ -139,7 +161,6 @@ def build() -> Path:
         os.replace(tmp_lib, lib_path)  # atomic: a reader never sees half a file
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return lib_path
 
 
 def library() -> ctypes.CDLL:

@@ -15,6 +15,8 @@ the cross term scattered from the other cloud
 the opt-in matmul-form kernel :func:`nn_argmin_bidir_mxu`
 (``csrc/nn_bidir_mxu.cu``; ``IMGADAPOINTR_ENABLE_MXU_EVAL_CHAMFER``).
 Each kernel has its plain PyTorch version beside its wrapper.
+Inside :class:`points_axis_sharding` (``--sp``) the losses run on the point
+axis of a process group (``ops/sharded.py``).
 """
 
 from __future__ import annotations
@@ -289,15 +291,83 @@ def _sqrt_floor(d: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(d.clamp_min(1e-24))
 
 
+# --sp: the points group of the enclosing points_axis_sharding, or None
+_POINTS_GROUP = None
+
+
+class points_axis_sharding:
+    """Context manager: :func:`chamfer_l1` and :func:`chamfer_l2` calls
+    inside it run on the point axis: each rank of ``group`` takes the
+    nearest neighbours of its slice of the point dimension of both clouds
+    against the other whole cloud, which every rank of the group holds, and
+    the means are all-reduced (``ops/sharded.py:_global_mean``), with no
+    all-gather of the clouds. A call with a mask, or whose point counts do
+    not divide the group, takes the unsharded op (JAX
+    ``ops/chamfer.py:38-83``, ``_points_ctx_for``). The runner enters it
+    around the model's losses under ``--sp``; the losses' gradients are
+    then each rank's share (the adjoint of their all-reduce), which the
+    runner's gradient reduction expects (``parallel/mesh.py``)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __enter__(self):
+        global _POINTS_GROUP
+        self._prev, _POINTS_GROUP = _POINTS_GROUP, self.group
+        return self
+
+    def __exit__(self, *exc):
+        global _POINTS_GROUP
+        _POINTS_GROUP = self._prev
+        return False
+
+
+def _points_group_for(x, y, w1, w2):
+    """The active points group iff this (x, y) call can be sharded."""
+    group = _POINTS_GROUP
+    if group is None or w1 is not None or w2 is not None:
+        return None
+    p = group.size
+    if p <= 1 or x.shape[1] % p or y.shape[1] % p:
+        return None
+    return group
+
+
+def _points_axis_nn(x: torch.Tensor, y: torch.Tensor, group):
+    """(d1, d2) of this rank's slice of the point dimension of each cloud
+    against the whole other cloud, which every rank of ``group`` holds: the
+    one-direction argmin (no mask) on the rank's rows, the distances
+    recomputed from the winners. No collective: the gradient reaches both
+    clouds through the rank's own rows and winners, its share of the whole."""
+    p, r = group.size, group.rank
+    xl, yl = x.chunk(p, dim=1)[r], y.chunk(p, dim=1)[r]
+    with torch.no_grad():
+        i1 = nn_one_direction(xl.detach().contiguous(), y.detach().contiguous())
+        i2 = nn_one_direction(yl.detach().contiguous(), x.detach().contiguous())
+    return sqdist(xl - index_points(y, i1)).clamp_min(0.0), sqdist(yl - index_points(x, i2)).clamp_min(0.0)
+
+
 def chamfer_l1(x, y, w1=None, w2=None) -> torch.Tensor:
     """CD-L1: ``(mean(sqrt(d1)) + mean(sqrt(d2))) / 2``; with masks each
     mean divides by the number of valid points."""
+    group = _points_group_for(x, y, w1, w2)
+    if group is not None:
+        from .sharded import _global_mean
+
+        d1, d2 = _points_axis_nn(x, y, group)
+        return (_global_mean(_sqrt_floor(d1), group, True) + _global_mean(_sqrt_floor(d2), group, True)) / 2.0
     d1, d2, _, _ = nn_distance(x, y, w1, w2)
     return (_masked_mean(_sqrt_floor(d1), w1) + _masked_mean(_sqrt_floor(d2), w2)) / 2.0
 
 
 def chamfer_l2(x, y, w1=None, w2=None) -> torch.Tensor:
     """CD-L2: ``mean(d1) + mean(d2)``."""
+    group = _points_group_for(x, y, w1, w2)
+    if group is not None:
+        from .sharded import _global_mean
+
+        d1, d2 = _points_axis_nn(x, y, group)
+        return _global_mean(d1, group, True) + _global_mean(d2, group, True)
     d1, d2, _, _ = nn_distance(x, y, w1, w2)
     return _masked_mean(d1, w1) + _masked_mean(d2, w2)
 

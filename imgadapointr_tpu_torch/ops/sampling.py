@@ -17,8 +17,11 @@ FPS and every gather go through the kernels (``furthest_point_sample``,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..parallel.dist import global_draw
 from .pointops import fps, furthest_point_sample, index_points
 
 
@@ -28,7 +31,7 @@ def jitter_points(pc: torch.Tensor, generator: torch.Generator | None = None,
     """``pc + clamp(std * n, -clip, clip)`` with ``n`` standard normal, drawn
     per element from ``generator``, or ``noise`` (``pc``'s shape)."""
     if noise is None:
-        noise = torch.randn(pc.shape, generator=generator, dtype=pc.dtype, device=pc.device)
+        noise = global_draw(torch.randn, pc.shape, generator=generator, dtype=pc.dtype, device=pc.device)
     elif noise.shape != pc.shape:
         raise ValueError(f"jitter_points: noise {tuple(noise.shape)} for points {tuple(pc.shape)}")
     return pc + (std * noise.to(device=pc.device, dtype=pc.dtype)).clamp(-clip, clip)
@@ -69,7 +72,8 @@ def separate_point_cloud(xyz: torch.Tensor, num_crop: int, fixed_point=None,
     B, N, _ = xyz.shape
     if fixed_point is None:
         if center is None:
-            center = torch.randn(B, 1, 3, generator=generator, dtype=xyz.dtype, device=xyz.device)
+            center = global_draw(torch.randn, (B, 1, 3), generator=generator, dtype=xyz.dtype,
+                                 device=xyz.device)
         center = _unit_center(center.to(device=xyz.device, dtype=xyz.dtype))
     else:
         center = torch.as_tensor(fixed_point, dtype=xyz.dtype, device=xyz.device).reshape(-1, 1, 3)
@@ -109,9 +113,10 @@ def train_random_crop(gt: torch.Tensor, npoints: int, out_points: int = 2048,
         raise ValueError(f"train_random_crop: {N} points a cloud, the config says {npoints}")
     lo, hi = npoints // 4, (npoints * 3) // 4
     if center is None:
-        center = torch.randn(B, 1, 3, generator=generator, dtype=gt.dtype, device=gt.device)
+        center = global_draw(torch.randn, (B, 1, 3), generator=generator, dtype=gt.dtype, device=gt.device)
     if num_crop is None:
-        num_crop = torch.randint(lo, hi + 1, (B, 1), generator=generator, device=gt.device)
+        num_crop = global_draw(functools.partial(torch.randint, lo, hi + 1), (B, 1), generator=generator,
+                               device=gt.device)
     center = _unit_center(center.to(device=gt.device, dtype=gt.dtype))
     return fps(train_crop_kept(gt, center, num_crop), out_points)
 
@@ -148,7 +153,7 @@ def random_sample(data: torch.Tensor, number: int, generator: torch.Generator | 
     top ``number`` of (B, N) uniform ``scores`` (drawn unless given)."""
     B, N, _ = data.shape
     if scores is None:
-        scores = torch.rand(B, N, generator=generator, device=data.device)
+        scores = global_draw(torch.rand, (B, N), generator=generator, device=data.device)
     return index_points(data, torch.topk(scores.to(data.device), number, dim=-1).indices)
 
 

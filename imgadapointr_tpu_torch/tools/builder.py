@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..datasets import DATASETS, Loader
+from ..parallel.mesh import data_coords
 from ..utils.schedulers import build_bnm_schedule, build_lr_schedule
 
 # Parameter subtrees that get no gradient by construction: the query-ranking
@@ -29,14 +30,25 @@ def dataset_builder(args, dataset_cfg):
     """(dataset, loader) for one split: the reader ``DATASETS`` registers
     under the config's ``NAME`` and a :class:`Loader` over it in the JAX
     loader's order (``--seed``). The train split is shuffled and drops its
-    ragged last batch; the batch size is ``others.bs``; ``--num_workers``
-    workers of ``--worker_mode`` (threads by default)."""
+    ragged last batch; ``--num_workers`` workers of ``--worker_mode``
+    (threads by default). The batch size is ``others.bs``; on several
+    ranks the train split is sharded over the data coordinate
+    (``parallel/mesh.py:data_coords``), each data rank reading
+    ``total_bs / dp`` a batch (a ``total_bs`` that does not divide raises),
+    and ranks that differ only in their model or points coordinate read
+    the same batches (``imgadapointr_tpu/tools/builder.py:25-40``).
+    Validation and test are not sharded: every rank reads the whole split."""
     dataset = DATASETS.build(dataset_cfg)
     is_train = dataset_cfg.others.subset == "train"
-    loader = Loader(dataset, batch_size=int(dataset_cfg.others.get("bs", 1)), shuffle=is_train,
+    bs = int(dataset_cfg.others.get("bs", 1))
+    dp, d = data_coords(int(getattr(args, "tp", 1) or 1), int(getattr(args, "sp", 1) or 1)) if is_train else (1, 0)
+    if bs % dp:
+        raise ValueError(f"total_bs {bs} does not divide the data axis ({dp} ranks): every rank "
+                         "needs an equal shard")
+    loader = Loader(dataset, batch_size=bs // dp, shuffle=is_train,
                     drop_last=is_train, seed=int(getattr(args, "seed", 0)),
                     num_workers=int(getattr(args, "num_workers", 0)),
-                    worker_mode=getattr(args, "worker_mode", "thread"))
+                    worker_mode=getattr(args, "worker_mode", "thread"), num_hosts=dp, host_id=d)
     return dataset, loader
 
 

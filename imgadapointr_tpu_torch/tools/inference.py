@@ -7,7 +7,8 @@ Usage:
         --pc partial.pcd --out_pc_root out/ [--save_vis_img] [--device cuda]
 
 Flags follow ``imgadapointr_tpu/tools/inference.py:25-36`` plus
-``--device`` (default ``cuda``; the CPU runs only when asked for). The
+``--device`` (default ``cuda``; the CPU runs only when asked for) and
+``--native_reader`` (``IO.use_native``, see ``utils/io_module.py``). The
 checkpoint is a reference-layout torch state dict (``.pth``/``.pt``, the
 port's own checkpoints among them) or a JAX ``.ckpt``
 (:func:`tools.convert.load_weights`). A cloud is any format ``IO.get``
@@ -45,6 +46,8 @@ def get_args(argv=None):
     parser.add_argument("--out_pc_root", type=str, default="", help="output dir")
     parser.add_argument("--save_vis_img", action="store_true", default=False)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--native_reader", action="store_true",
+                        help="read .pcd, .ply and .npy through the native reader (datasets/native_io.py)")
     args = parser.parse_args(argv)
     if not (args.save_vis_img or args.out_pc_root):
         parser.error("one of --out_pc_root / --save_vis_img is required")
@@ -112,6 +115,7 @@ def save_vis(target: str, partial: np.ndarray, dense: np.ndarray) -> None:
 
 def main(argv=None):
     args = get_args(argv)
+    IO.use_native = args.native_reader
     config, model = build(args)
     if args.pc_root:
         for f in sorted(os.listdir(args.pc_root)):

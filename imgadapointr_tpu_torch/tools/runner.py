@@ -21,14 +21,24 @@ stopped before step 6, as the JAX runner's window), its TensorBoard scalars (the
 writers ``main`` makes), ``--wandb`` and the RSS watchdog
 (``IMGADAPOINTR_RSS_LIMIT_GB``; ``imgadapointr_tpu/tools/runner.py:40-76``,
 ``:467-640``).
+
+Several processes (``torchrun``, ``main.py --launcher pytorch``) run one
+train step together over a ``(dp, tp, sp)`` mesh (``parallel/mesh.py``):
+the state starts from rank 0's init, the data-parallel update all-reduces
+the gradients (no ``DistributedDataParallel``), BatchNorm takes the global
+batch's moments, every draw shaped by the batch is drawn at the global
+batch's shape and sliced (``parallel/dist.py:global_draw``), ``--tp``
+column-shards the large weights, ``--sp`` runs the chamfer losses on the
+point axis (``ops/chamfer.py:points_axis_sharding``), and rank 0 alone
+writes checkpoints, logs and scalars.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
-import resource
 import sys
 import time
 
@@ -37,10 +47,12 @@ import torch
 
 from ..models import build_model
 from ..ops import fps, mxu_eval_chamfer_active, nn_distance, random_dropping, separate_point_cloud, train_random_crop
-from ..ops.chamfer import _sqrt_floor
+from ..ops.chamfer import _sqrt_floor, points_axis_sharding
+from ..parallel.dist import data_parallel
+from ..parallel.mesh import (TensorParallel, broadcast_state, clip_grad_norm, make_mesh, reduce_gradients,
+                             reduce_max, reduce_mean, reduce_tensors)
 from ..utils.average_meter import AverageMeter
-from ..utils.checkpoint import (checkpoint_path, load_checkpoint, load_jax_checkpoint, save_checkpoint,
-                                set_pending_grads)
+from ..utils.checkpoint import checkpoint_path, load_checkpoint, load_jax_checkpoint, save_checkpoint
 from ..utils.device import deterministic_cudnn, resolve_device
 from ..utils.logger import print_log
 from ..utils.metrics import METRIC_NAMES, Metrics, compute_metrics_per_sample, eval_metric_suite, f_score
@@ -62,9 +74,24 @@ RSS_RESTART_EXIT_CODE = 75  # EX_TEMPFAIL: relaunch with --resume
 PROFILE_WINDOW = (1, 6)  # --profile traces train steps 1-5 of the first epoch, as JAX's (1, 6)
 
 
+def _proc_status() -> str:
+    """The text of ``/proc/self/status`` ('' where it is missing)."""
+    try:
+        with open("/proc/self/status") as f:
+            return f.read()
+    except OSError:
+        return ""
+
+
 def host_rss_gb() -> float:
-    """The process's peak resident set in GB (``ru_maxrss`` is in KiB on Linux)."""
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    """The process's current resident set in GB: ``VmRSS`` of
+    ``/proc/self/status`` (in kB), 0 where the line is missing. The JAX
+    package reads the peak (``ru_maxrss``, the status file's ``VmHWM``), so
+    one spike kept every later epoch over the limit."""
+    for line in _proc_status().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1e6
+    return 0.0
 
 
 def rss_limit_gb() -> float:
@@ -121,13 +148,18 @@ class Runner:
         self.logger = logger
         self.device = resolve_device(getattr(args, "device", "cuda"))
         seed = int(getattr(args, "seed", 0))
+        # the (dp, tp, sp) mesh of the initialised process group, or one process's
+        self.mesh = make_mesh(int(getattr(args, "tp", 1) or 1), int(getattr(args, "sp", 1) or 1))
         self.model = build_model(config.model, device=self.device, seed=seed)
         if getattr(args, "gdanet_w", None):
             load_gdanet(self.model, args.gdanet_w, logger)
+        broadcast_state(self.model, self.mesh.world)  # one init on every rank
+        self.tp = TensorParallel(self.model, config.model, self.mesh)
         self.consider_metric = config.get("consider_metric", "CDL1")
         self.grad_clip = float(config.get("grad_norm_clip", 10.0))
         self.train_aug, self.train_npoints = select_train_aug(config)
-        # the train augmentation's and the denoise jitter's stream, on the model's device
+        # the train augmentation's and the denoise jitter's stream, on the model's
+        # device, seeded alike on every rank (the draws are the global batch's)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer = None
         self.step = 0  # train steps (batches) taken
@@ -141,6 +173,13 @@ class Runner:
         self.optimizer, self.lr_sched, self.bnm_sched = build_opt_sched(
             self.config, steps_per_epoch, self.model
         )
+
+    def _local_rows(self, t: torch.Tensor | None, batch_size: int) -> torch.Tensor | None:
+        """This data rank's rows of a draw given at the global batch's size."""
+        dp, d = self.mesh.dp, self.mesh.coords[0]
+        if t is None or dp == 1 or t.shape[0] != batch_size * dp:
+            return t
+        return t[d * batch_size:(d + 1) * batch_size]
 
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
@@ -185,31 +224,45 @@ class Runner:
         normal (AdaPoinTr) or the point sampling's uniform scores (GRNet).
         Else they come from ``self.generator``, after the augmentation's
         (the crop's (B, 1, 3) normal centre, then its (B, 1) crop sizes; or
-        the dropping's one kept count); ``aug`` fixes the augmentation's."""
-        batch = self.augment(self._to_device(batch), epoch_f, aug)
-        self.model.train()
-        k = self.step_per_update
-        lr = self.lr_sched(self.step // k)
-        if self.step % k == 0:
-            self.optimizer.zero_grad(set_to_none=True)
-        with deterministic_cudnn():  # bit-equal gradients from one state
-            ret = self.model(*self._inputs(batch), bn_momentum=self.bnm_sched(epoch_f),
-                             generator=self.generator, noise=noise)
-            sparse, dense = self.model.loss(ret, batch["gt"], epoch_f)
-            total = sparse + dense
-            total.backward()
+        the dropping's one kept count); ``aug`` fixes the augmentation's.
+
+        On several ranks ``batch`` is this data rank's shard; ``noise`` and
+        ``aug`` may be given at the global batch's size, and each rank takes
+        its rows. The gradients are all-reduced before the clip
+        (:func:`~..parallel.mesh.reduce_gradients`) and the returned losses
+        are the global batch's means, the same on every rank."""
+        mesh = self.mesh
+        B = len(next(iter(batch.values())))
+        noise = self._local_rows(noise, B)
+        aug = {k: self._local_rows(v, B) if torch.is_tensor(v) and v.dim() else v
+               for k, v in (aug or {}).items()}
+        with data_parallel(mesh.data):
+            batch = self.augment(self._to_device(batch), epoch_f, aug)
+            self.model.train()
+            k = self.step_per_update
+            lr = self.lr_sched(self.step // k)
+            if self.step % k == 0:
+                self.optimizer.zero_grad(set_to_none=True)
+            with deterministic_cudnn():  # bit-equal gradients from one state
+                ret = self.model(*self._inputs(batch), bn_momentum=self.bnm_sched(epoch_f),
+                                 generator=self.generator, noise=noise)
+                with points_axis_sharding(mesh.points) if mesh.sp > 1 else contextlib.nullcontext():
+                    sparse, dense = self.model.loss(ret, batch["gt"], epoch_f)
+                total = sparse + dense
+                total.backward()
         for name, p in self.model.named_parameters():
             if p.grad is not None and any(m in name for m in ZERO_GRAD_PARAM_MARKERS):
                 raise RuntimeError(f"{name} got a gradient: it must stay out of the graph")
         self.step += 1
-        out = {"sparse_loss": sparse.detach(), "dense_loss": dense.detach(),
-               "total_loss": total.detach(), "lr": lr}
+        losses = reduce_mean(torch.stack([sparse.detach(), dense.detach(), total.detach()]), mesh.data)
+        out = {"sparse_loss": losses[0], "dense_loss": losses[1], "total_loss": losses[2], "lr": lr}
         if self.step % k == 0:
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
-            # torch's rule is the reference's: coef = min(max_norm / (norm + 1e-6), 1)
             trainable = [p for p in self.model.parameters() if p.requires_grad]
-            out["grad_norm"] = torch.nn.utils.clip_grad_norm_(trainable, self.grad_clip)
+            reduce_gradients(trainable, mesh, self.tp)
+            # torch's rule is the reference's: coef = min(max_norm / (norm + 1e-6), 1)
+            out["grad_norm"] = clip_grad_norm(trainable, self.grad_clip, mesh, self.tp)
             self.optimizer.step()
         return out
 
@@ -275,25 +328,43 @@ class Runner:
     # ------------------------------------------------------------- checkpoints
     def pending_grads(self) -> dict | None:
         """The gradient sum of the batches since the last update (by
-        parameter name), None right after an update."""
+        parameter name), None right after an update. On several ranks it is
+        the sum the update would see, reduced over the ranks (whole
+        tensors under ``--tp``); every rank must call it."""
         if self.step % self.step_per_update == 0:
             return None
-        return {n: p.grad.detach() for n, p in self.model.named_parameters() if p.grad is not None}
+        named = [(n, p) for n, p in self.model.named_parameters() if p.grad is not None]
+        grads = {n: p.grad.detach().clone() for n, p in named}
+        reduce_tensors([(grads[n], self.tp.is_sliced(p)) for n, p in named], self.mesh)
+        return {n: self.tp._full(self.tp.sliced[n], g) if n in self.tp.sliced else g for n, g in grads.items()}
 
-    def save(self, prefix: str, epoch: int, metrics, best_metrics) -> str:
-        return save_checkpoint(
-            self.model, self.optimizer, epoch, self.step,
-            metrics.state_dict() if metrics else None,
-            best_metrics.state_dict() if best_metrics else None,
-            prefix, self.args.experiment_path, self.logger, generator=self.generator,
-            pending_grads=self.pending_grads(),
-        )
+    def _set_pending_grads(self, grads: dict) -> None:
+        """A checkpoint's pending sum (whole tensors) as this rank's share."""
+        for name, p in self.model.named_parameters():
+            g = grads.get(name)
+            p.grad = None if g is None else self.tp.local_share(name, g.to(p.device, p.dtype))
+
+    def save(self, prefix: str, epoch: int, metrics, best_metrics) -> str | None:
+        """Write ``<prefix>.pth`` from rank 0 (every rank must call it: the
+        whole tensors of ``--tp`` and the pending sum are gathered first)."""
+        pending = self.pending_grads()
+        with self.tp.unsharded(self.optimizer):
+            if not self.mesh.is_main:
+                return None
+            return save_checkpoint(
+                self.model, self.optimizer, epoch, self.step,
+                metrics.state_dict() if metrics else None,
+                best_metrics.state_dict() if best_metrics else None,
+                prefix, self.args.experiment_path, self.logger, generator=self.generator,
+                pending_grads=pending,
+            )
 
     def load_weights(self, path: str) -> None:
         """Weights only, from a checkpoint of this runner, a reference-layout
         ``.pth`` or a JAX ``.ckpt`` (a path, a bare prefix, or either inside
         the experiment directory); optimizer and schedules stay fresh."""
-        load_weights(self.model, path, self.config.model, getattr(self.args, "experiment_path", None))
+        with self.tp.unsharded():
+            load_weights(self.model, path, self.config.model, getattr(self.args, "experiment_path", None))
 
     def resume(self, path: str) -> dict:
         """Continue from the checkpoint at ``path``: this runner's ``.pth``
@@ -302,20 +373,26 @@ class Runner:
         statistics, optimizer state, step, and the pending sum its
         ``MultiSteps`` state holds; the JAX run's random stream is not the
         port's, so the generator stays as seeded). Returns the checkpoint's ``epoch`` and ``best_metrics``."""
-        if path.endswith(".pth"):
-            meta = load_checkpoint(path, self.model, self.optimizer, self.generator)
-            self.step = int(meta["step"])
-            return meta
-        tree, meta = load_jax_checkpoint(path)
-        load_flax_weights(self.model, tree, self.config.model)
-        opt_state = tree.get("opt_state")
-        if opt_state is not None:
-            self.optimizer.load_state_dict(
-                optimizer_state_from_optax(opt_state, self.config.model, self.model, self.optimizer))
-            set_pending_grads(self.model, pending_grads_from_optax(
-                opt_state, self.config.model, self.model))
-        self.step = int(tree.get("step", 0))
-        return {"epoch": meta.get("epoch", -1), "best_metrics": meta.get("best_metrics")}
+        self.model.zero_grad(set_to_none=True)
+        with self.tp.unsharded(self.optimizer):
+            if path.endswith(".pth"):
+                meta = load_checkpoint(path, self.model, self.optimizer, self.generator)
+                pending = {n: p.grad for n, p in self.model.named_parameters() if p.grad is not None}
+                self.step = int(meta["step"])
+            else:
+                tree, jax_meta = load_jax_checkpoint(path)
+                load_flax_weights(self.model, tree, self.config.model)
+                opt_state = tree.get("opt_state")
+                pending = {}
+                if opt_state is not None:
+                    self.optimizer.load_state_dict(
+                        optimizer_state_from_optax(opt_state, self.config.model, self.model, self.optimizer))
+                    pending = pending_grads_from_optax(opt_state, self.config.model, self.model)
+                self.step = int(tree.get("step", 0))
+                meta = {"epoch": jax_meta.get("epoch", -1), "best_metrics": jax_meta.get("best_metrics")}
+            self.model.zero_grad(set_to_none=True)
+        self._set_pending_grads(pending)
+        return meta
 
 
 def load_gdanet(model, path: str, logger=None) -> None:
@@ -396,7 +473,7 @@ def run_net(args, config, writers=None) -> Runner:
 
     max_epoch = int(config.max_epoch)
     save_freq = max(1, int(getattr(args, "save_freq", 1) or 1))
-    wandb_run = maybe_wandb(args, config)
+    wandb_run = maybe_wandb(args, config) if runner.mesh.is_main else None
     profiling = None  # the live torch.profiler of --profile
     try:
         for epoch in range(start_epoch, max_epoch):
@@ -449,8 +526,11 @@ def run_net(args, config, writers=None) -> Runner:
             if wandb_run:
                 wandb_run.log({"epoch": epoch, "train/sparse": ep[0], "train/dense": ep[1]})
 
-            # --save_freq: ckpt-best and ckpt-last on every save_freq-th epoch
-            # and on the last two (imgadapointr_tpu/tools/runner.py:536-555)
+            # --save_freq: ckpt-last on every save_freq-th epoch and on the
+            # last two (imgadapointr_tpu/tools/runner.py:536-555); ckpt-best
+            # on every improvement, as the reference writes it (the JAX
+            # runner writes it on saving epochs only, so a best on another
+            # epoch was lost)
             save_epoch = epoch % save_freq == 0 or epoch >= max_epoch - 2
             if epoch % int(getattr(args, "val_freq", 1)) == 0:
                 metrics = validate(runner, val_loader, epoch, logger, val_writer)
@@ -458,28 +538,41 @@ def run_net(args, config, writers=None) -> Runner:
                     wandb_run.log({"epoch": epoch, **{f"val/{k}": v for k, v in metrics.state_dict().items()}})
                 if metrics.better_than(best_metrics):
                     best_metrics = metrics
-                    if save_epoch:
-                        runner.save("ckpt-best", epoch, metrics, best_metrics)
+                    runner.save("ckpt-best", epoch, metrics, best_metrics)
             if save_epoch:
                 runner.save("ckpt-last", epoch, None, best_metrics)
             if epoch > max_epoch - 2:
                 runner.save(f"ckpt-epoch-{epoch:03d}", epoch, None, best_metrics)
-            # the RSS watchdog: an epoch's end with ckpt-last on disk is a
-            # clean point to stop; the exit code asks for a --resume relaunch
-            rss_limit = rss_limit_gb()
-            if rss_limit and epoch < max_epoch - 1 and host_rss_gb() > rss_limit:
-                if not save_epoch:  # so that the resumed run loses nothing
-                    runner.save("ckpt-last", epoch, None, best_metrics)
-                print_log(f"[rss-watchdog] host RSS {host_rss_gb():.1f} GB > limit {rss_limit:.1f} GB "
-                          f"after epoch {epoch}; ckpt-last saved: exiting {RSS_RESTART_EXIT_CODE} "
-                          "for a --resume relaunch", logger)
-                sys.exit(RSS_RESTART_EXIT_CODE)
+            rss_watchdog(runner, epoch, max_epoch, save_epoch, best_metrics, logger)
     finally:  # the loaders' workers and a trace left open by an exception
         if profiling is not None:
             profiling.stop()
         train_loader.close()
         val_loader.close()
     return runner
+
+
+def rss_watchdog(runner: Runner, epoch: int, max_epoch: int, save_epoch: bool, best_metrics,
+                 logger=None) -> None:
+    """The RSS watchdog at an epoch's end, a clean point to stop: above
+    :func:`rss_limit_gb`, save ``ckpt-last`` (unless this epoch saved it)
+    and exit ``RSS_RESTART_EXIT_CODE`` for a ``--resume`` relaunch. The
+    reading is the current RSS (:func:`host_rss_gb`), and on several ranks
+    the decision is the maximum over them (an all-reduce), so every rank
+    saves and exits together rather than leave the others blocked in a
+    collective. Not after the last epoch."""
+    rss_limit = rss_limit_gb()
+    if not rss_limit or epoch >= max_epoch - 1:
+        return
+    rss = reduce_max(host_rss_gb(), runner.mesh)
+    if rss <= rss_limit:
+        return
+    if not save_epoch:  # so that the resumed run loses nothing
+        runner.save("ckpt-last", epoch, None, best_metrics)
+    print_log(f"[rss-watchdog] host RSS {rss:.1f} GB > limit {rss_limit:.1f} GB "
+              f"after epoch {epoch}; ckpt-last saved: exiting {RSS_RESTART_EXIT_CODE} "
+              "for a --resume relaunch", logger)
+    sys.exit(RSS_RESTART_EXIT_CODE)
 
 
 # ------------------------------------------------------------------- validate

@@ -4,9 +4,15 @@
 The port's own copy of the pure-Python parsers of
 ``imgadapointr_tpu/utils/io_module.py:55-167`` (ASCII and binary ``.pcd``,
 ASCII and binary little-endian ``.ply``), so that a file reads into the same
-float32 array in both packages. The JAX package's native fast path
-(``native/pcio.cpp``) is not ported. ``h5py`` is imported only by the
-``.h5`` reader and writer. Unlike the JAX parser, the ``.ply`` reader
+float32 array in both packages. With ``IO.use_native`` set (the entry
+points' ``--native_reader``), ``.pcd``, ``.ply`` and ``.npy`` go through
+the port's native reader (``datasets/native_io.py``, a ctypes call that
+releases the GIL), as the JAX package routes them by default; a file it
+cannot parse goes to these parsers, which it matches bit for bit. The
+port leaves it off by default: the reader's first version crashed some
+processes on the H100 machines, for a cause never found, and the current
+one has passed only a few runs (PERF.md §6). ``h5py`` is imported only by
+the ``.h5`` reader and writer. Unlike the JAX parser, the ``.ply`` reader
 keeps the vertex properties when another element (a mesh's faces)
 follows them. :meth:`IO.put` writes every format
 :meth:`IO.get` reads: ``.pcd`` in the binary layout the PCN dataset ships,
@@ -28,9 +34,17 @@ _PLY_TYPES = {"float": "f4", "float32": "f4", "double": "f8", "uchar": "u1", "ui
 
 
 class IO:
+    use_native = False  # .pcd, .ply and .npy through datasets/native_io.py when set (--native_reader)
+
     @classmethod
     def get(cls, file_path: str) -> np.ndarray:
         ext = os.path.splitext(file_path)[-1].lower()
+        if cls.use_native and ext in (".pcd", ".ply", ".npy"):
+            from ..datasets.native_io import read_cloud
+
+            arr = read_cloud(file_path)
+            if arr is not None:
+                return arr
         if ext == ".npy":
             return np.load(file_path).astype(np.float32)
         if ext == ".npz":

@@ -1,18 +1,27 @@
 """Command-line flags of the train / test entry point.
 
 The flags of ``imgadapointr_tpu/utils/parser.py``, plus ``--device``
-(default ``cuda``; the CPU runs only when asked for). ``experiments/`` goes
+(default ``cuda``; the CPU runs only when asked for) and
+``--native_reader`` (``IO.use_native``: the point-cloud files through the
+native reader, which the JAX package uses by default). ``experiments/`` goes
 under the current directory; ``args.tfboard_path`` is
 ``experiments/<stem>/<parent>/TFBoard/<exp_name>`` (the TensorBoard
 writers' and ``--profile``'s directory).
 
+Several processes: ``--launcher pytorch``, or a ``WORLD_SIZE`` above 1 in
+the environment (``torchrun``), makes ``main`` initialise
+``torch.distributed`` from the environment (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``, else ``--local_rank`` as
+the reference's ``torch.distributed.launch`` passed it). ``--tp`` and
+``--sp`` (tensor and point-axis widths) must divide the world; the data
+width is what is left.
+
 Inert compat flags, accepted with a notice so that a reference command
-line runs unchanged: ``--launcher`` and ``--local_rank`` (the port runs one
-process on one device), ``--sync_bn`` (one device's batch statistics are the
-batch's) and ``--deterministic`` (a train step is deterministic already: no
-kernel adds with float atomics and ``Runner.train_step`` holds cuDNN to its
-deterministic algorithms). ``--tp`` and ``--sp`` accept 1 only: tensor and
-point-axis parallelism are multi-GPU work (ROADMAP Queue 1 item 7).
+line runs unchanged: ``--sync_bn`` (with several ranks the batch statistics
+are always the global batch's, as under JAX's GSPMD) and
+``--deterministic`` (a train step is deterministic already: no kernel adds
+with float atomics and ``Runner.train_step`` holds cuDNN to its
+deterministic algorithms).
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ from pathlib import Path
 
 COMPAT_NOTICE = ("[parser] {flag} accepted for reference-CLI compatibility; "
                  "it has no effect here (see utils/parser.py docstring)")
+SYNC_BN_NOTICE = ("[parser] --sync_bn accepted for reference-CLI compatibility: with several ranks "
+                  "BatchNorm always takes the global batch's statistics")
 
 
 def get_args(argv=None):
@@ -33,6 +44,8 @@ def get_args(argv=None):
     parser.add_argument("--num_workers", type=int, default=8, help="loader workers")
     parser.add_argument("--worker_mode", choices=["thread", "process"], default="thread",
                         help="loader workers: threads of this process (default) or worker processes")
+    parser.add_argument("--native_reader", action="store_true",
+                        help="read .pcd, .ply and .npy through the native reader (datasets/native_io.py)")
     parser.add_argument("--val_freq", type=int, default=1, help="validate every N epochs")
     parser.add_argument("--save_freq", type=int, default=1,
                         help="ckpt-best and ckpt-last every N epochs (and on the last two)")
@@ -56,23 +69,31 @@ def get_args(argv=None):
     parser.add_argument("--wandb", action="store_true", help="log to wandb, where it is installed")
     parser.add_argument("--profile", action="store_true",
                         help="write a torch.profiler trace of train steps 1-5 into the TFBoard directory")
-    parser.add_argument("--tp", type=int, default=1, help="tensor-parallel width (1 only)")
-    parser.add_argument("--sp", type=int, default=1, help="point-axis-parallel width (1 only)")
+    parser.add_argument("--tp", type=int, default=1, help="tensor-parallel width (divides the world)")
+    parser.add_argument("--sp", type=int, default=1, help="point-axis-parallel width (divides the world)")
     parser.add_argument("--deterministic", action="store_true", help="no-op: a train step is deterministic")
-    parser.add_argument("--sync_bn", action="store_true", help="no-op: one device's statistics are the batch's")
+    parser.add_argument("--sync_bn", action="store_true",
+                        help="no-op: with several ranks BatchNorm takes the global batch's statistics")
     parser.add_argument("--launcher", choices=["none", "pytorch"], default="none",
-                        help="no-op: one process on one device")
-    parser.add_argument("--local_rank", type=int, default=0, help="no-op: one process on one device")
+                        help="pytorch: one process a device, torch.distributed from the environment")
+    parser.add_argument("--local_rank", "--local-rank", type=int, default=0,
+                        help="this process's device (LOCAL_RANK of the environment wins)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    for flag, hit in (("--deterministic", args.deterministic), ("--sync_bn", args.sync_bn),
-                      ("--launcher", args.launcher != "none")):
-        if hit:
-            print(COMPAT_NOTICE.format(flag=flag))
+    if args.deterministic:
+        print(COMPAT_NOTICE.format(flag="--deterministic"))
+    if args.sync_bn:
+        print(SYNC_BN_NOTICE)
     for flag, width in (("--tp", args.tp), ("--sp", args.sp)):
-        if width != 1:
-            parser.error(f"{flag} {width}: only 1 runs here; tensor and point-axis parallelism "
-                         "wait for multi-GPU support (ROADMAP Queue 1 item 7)")
+        if width < 1:
+            parser.error(f"{flag} {width}: a width is at least 1")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    args.distributed = args.launcher == "pytorch" or world > 1
+    if not args.distributed and args.tp * args.sp > 1:
+        parser.error(f"--tp {args.tp} --sp {args.sp}: launch one process a device "
+                     "(torchrun ... --launcher pytorch) for widths above 1")
+    if world % (args.tp * args.sp):
+        parser.error(f"--tp {args.tp} x --sp {args.sp} does not divide the world of {world} ranks")
 
     if args.test and args.resume:
         parser.error("--test and --resume cannot be both activated")

@@ -374,14 +374,58 @@ def test_baselines_share_one_registry_entry_each():
 
 
 def test_grnet_refuses_random_eval_sampling():
-    """Only the fixed eval draws are ported: ``eval_sampling: random`` is
-    refused, not ignored."""
+    """``eval_sampling`` takes ``fixed`` or ``random`` and refuses anything
+    else; ``random`` refuses an eval forward without a generator rather
+    than draw from a hidden one."""
     cfg = cfg_from_yaml_file("cfgs/PCN_models/GRNet.yaml").model
     with torch.device("meta"):
-        assert isinstance(port_grnet.GRNet(cfg), port_grnet.GRNet)
+        assert port_grnet.GRNet(cfg).eval_sampling == "fixed"
         cfg.eval_sampling = "random"
+        assert port_grnet.GRNet(cfg).eval_sampling == "random"
+        cfg.eval_sampling = "randomly"
         with pytest.raises(ValueError, match="eval_sampling"):
             port_grnet.GRNet(cfg)
+    _, pcfg = configs("GRNet")
+    pcfg.model.eval_sampling = "random"
+    model = MODELS.build(pcfg.model, device="cpu", seed=0).eval()
+    with pytest.raises(ValueError, match="generator"), torch.no_grad():
+        model(torch.zeros(1, 128, 3))
+
+
+def test_grnet_random_eval_sampling(one_torch_thread):
+    """``eval_sampling: random`` against the JAX module in float64 at the
+    small widths, both handed the same scores (JAX's, drawn from the
+    'noise' key it is given; 1e-9 absolute); from the port's generator two
+    requests of one seed are bit-equal, two seeds differ, and the shapes
+    are the fixed mode's."""
+    jcfg, pcfg = configs("GRNet")
+    jcfg.model.eval_sampling = pcfg.model.eval_sampling = "random"
+    B, n_in, _ = SMALL["GRNet"][1]
+    x = np.random.RandomState(5).uniform(-0.45, 0.45, (B, n_in, 3))
+    runner = JaxRunner(types.SimpleNamespace(tp=1), jcfg)
+    module = runner.module
+    key = jax.random.PRNGKey(9)
+    with x64():
+        xj = jnp.asarray(x)
+        shapes = jax.eval_shape(lambda: module.init({"params": key, "noise": key}, xj, train=True))
+        v = random_tree(dict(shapes), 29)
+        variables = as_f64(v)
+        scores = grnet_scores(module, variables, key, B, n_in + port_grnet.GRID**3)
+        want = [np.asarray(o) for o in jax.jit(
+            lambda v, x: module.apply(v, x, train=False, rngs={"noise": key}))(variables, xj)]
+    model = MODELS.build(pcfg.model, device="cpu", seed=0).double().eval()
+    model.load_state_dict(state_dict_from_flax(v["params"], v["batch_stats"], pcfg.model), strict=True)
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        got = model(xt, noise=torch.from_numpy(scores))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-9)
+        draws = [model(xt, generator=torch.Generator().manual_seed(s)) for s in (1, 1, 2)]
+    for a, b in zip(draws[0], draws[1]):
+        assert torch.equal(a, b)
+    assert not torch.equal(draws[0][0], draws[2][0])
+    assert [tuple(t.shape) for t in draws[0]] == [tuple(t.shape) for t in got] == [
+        (B, pcfg.model.num_pred // 8, 3), (B, pcfg.model.num_pred, 3)]
 
 
 @pytest.mark.parametrize("before", [False, True])

@@ -13,8 +13,9 @@
   ``ImgEncSegDec-tiny.yaml`` from one ``.ckpt``, with a ``.png``, a class id
   and a 700-point ``.pcd`` (the tile-up path): the preprocessed inputs are
   bit-equal and the dense clouds agree within ``SERVE_ATOL``.
-- The flags: the inert compat flags print JAX's notice, ``--tp 2`` and
-  ``--sp 2`` refuse, ``--worker_mode thread`` and ``process`` give the
+- The flags: ``--deterministic`` prints JAX's notice and ``--sync_bn`` its
+  own, ``--tp 2`` and ``--sp 2`` need a launch whose world they divide,
+  the RSS watchdog reads the current RSS, ``--worker_mode thread`` and ``process`` give the
   batches of 0 workers over two epochs, ``--profile`` writes a trace, the
   writers' event files hold JAX's tags, ``--wandb`` without wandb says so
   and goes on, the RSS watchdog exits 75 after ``ckpt-last`` and
@@ -60,6 +61,7 @@ from imgadapointr_tpu_torch.datasets import DATASETS
 from imgadapointr_tpu_torch.datasets.loader import Loader
 from imgadapointr_tpu_torch.demo import PCReconstructor
 from imgadapointr_tpu_torch.tools import inference
+from imgadapointr_tpu_torch.tools import runner as port_runner
 from imgadapointr_tpu_torch.utils import parser as port_parser
 from imgadapointr_tpu_torch.utils.io_module import IO
 from imgadapointr_tpu_torch.utils.metrics import METRIC_NAMES
@@ -123,7 +125,8 @@ def a_cloud(n: int = 700, seed: int = 0) -> np.ndarray:
 # ------------------------------------------------------------- the CLI
 
 
-def test_cli_serves_a_jax_checkpoint_in_every_format(tmp_path, one_torch_thread):
+def test_cli_serves_a_jax_checkpoint_in_every_format(tmp_path, one_torch_thread, monkeypatch):
+    monkeypatch.setattr(IO, "use_native", IO.use_native)  # restored after --native_reader sets it
     jax_weights(TINY, tmp_path / "exp", seed=7)
     ckpt = str(tmp_path / "exp" / "ckpt-best.ckpt")
     root = tmp_path / "clouds"
@@ -147,12 +150,14 @@ def test_cli_serves_a_jax_checkpoint_in_every_format(tmp_path, one_torch_thread)
         np.testing.assert_allclose(fine, want, rtol=0, atol=SERVE_ATOL, err_msg=ext)
         for name in ("input.jpg", "fine.jpg"):
             assert (tmp_path / "port" / f"cloud_{ext}" / name).stat().st_size > 0
-    # one cloud by --pc, a .pth of the same weights: the same answer
+    # one cloud by --pc, a .pth of the same weights, through the native reader: the same answer
     model = inference.build(inference.get_args(["--model_config", TINY, "--model_checkpoint", ckpt,
                                                 "--pc", "x", "--out_pc_root", "y", "--device", "cpu"]))[1]
     torch.save({"base_model": model.state_dict()}, tmp_path / "w.pth")
     inference.main(["--model_config", TINY, "--model_checkpoint", str(tmp_path / "w.pth"), "--pc",
-                    str(root / "cloud_pcd.pcd"), "--out_pc_root", str(tmp_path / "pth"), "--device", "cpu"])
+                    str(root / "cloud_pcd.pcd"), "--out_pc_root", str(tmp_path / "pth"), "--device", "cpu",
+                    "--native_reader"])
+    assert IO.use_native
     np.testing.assert_array_equal(np.load(tmp_path / "pth" / "cloud_pcd" / "fine.npy"), got["pcd"])
 
 
@@ -195,12 +200,22 @@ def test_pcreconstructor_serves_the_superset_like_jax(tmp_path, one_torch_thread
 # ------------------------------------------------------------------ flags
 
 
-def test_parser_takes_jax_flags(run_dir, capsys):
+def test_parser_takes_jax_flags(run_dir, capsys, monkeypatch):
+    """The JAX parser's flags: ``--deterministic`` prints JAX's notice,
+    ``--sync_bn`` one that says the statistics are the global batch's,
+    ``--launcher pytorch`` and ``--local_rank`` take effect (a launch of
+    several processes); ``--tp`` and ``--sp`` must divide the world, and
+    above 1 they need a launch."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     argv = ["--config", TINY, "--deterministic", "--sync_bn", "--launcher", "pytorch", "--local_rank", "2"]
     args = port_parser.get_args(argv)
     ours = capsys.readouterr().out
     jargs = jax_parser.get_args(argv)
-    assert ours == capsys.readouterr().out and ours.count("accepted for reference-CLI compatibility") == 3
+    theirs = capsys.readouterr().out
+    assert ours.count("accepted for reference-CLI compatibility") == 2
+    assert "[parser] --deterministic accepted" in ours and "[parser] --deterministic accepted" in theirs
+    assert "global batch's statistics" in ours
+    assert args.distributed and args.local_rank == 2 and args.launcher == "pytorch"
     assert (args.worker_mode, args.tp, args.sp, args.profile, args.wandb) == (
         jargs.worker_mode, jargs.tp, jargs.sp, jargs.profile, jargs.wandb) == ("thread", 1, 1, False, False)
     assert args.tfboard_path == os.path.join("experiments", "AdaPoinTr-tiny", "PCN_models", "TFBoard", "default")
@@ -208,7 +223,15 @@ def test_parser_takes_jax_flags(run_dir, capsys):
     for flag in ("--tp", "--sp"):
         with pytest.raises(SystemExit):
             port_parser.get_args(["--config", TINY, flag, "2"])
-        assert "ROADMAP Queue 1 item 7" in capsys.readouterr().err
+        assert "launch one process a device" in capsys.readouterr().err
+        monkeypatch.setenv("WORLD_SIZE", "3")
+        with pytest.raises(SystemExit):
+            port_parser.get_args(["--config", TINY, flag, "2"])
+        assert "does not divide the world of 3 ranks" in capsys.readouterr().err
+        monkeypatch.setenv("WORLD_SIZE", "4")
+        assert getattr(port_parser.get_args(["--config", TINY, flag, "2"]), flag[2:]) == 2
+        monkeypatch.delenv("WORLD_SIZE")
+    assert not port_parser.get_args(["--config", TINY]).distributed
     port_parser.get_args(["--config", TINY, "--tp", "1", "--sp", "1", "--worker_mode", "process"])
     port_parser.get_args(["--config", TINY, "--test"])
     assert "[WARN] testing without --ckpts (random init)" in capsys.readouterr().out
@@ -302,3 +325,30 @@ def test_test_without_ckpts_warns_then_refuses(run_dir, small_synthetic, capfd):
         port_main.main(["--config", TINY, "--exp_name", "t", "--synthetic", "--test", "--no_emd",
                         "--device", "cpu", "--num_workers", "0"])
     assert "[WARN] testing without --ckpts (random init)" in capfd.readouterr().out
+
+
+def test_rss_watchdog_reads_the_current_rss(monkeypatch, tmp_path):
+    """``host_rss_gb`` is ``VmRSS``, not the peak ``VmHWM``: after a spike
+    that has dropped, the watchdog goes on; over the limit it saves
+    ``ckpt-last`` (on an epoch that did not) and exits 75."""
+    from imgadapointr_tpu_torch.parallel.mesh import make_mesh
+
+    status = {"text": "VmHWM:\t90000000 kB\nVmRSS:\t  500000 kB\n"}  # an 90 GB spike, 0.5 GB now
+    monkeypatch.setattr(port_runner, "_proc_status", lambda: status["text"])
+    monkeypatch.setenv("IMGADAPOINTR_RSS_LIMIT_GB", "10")
+    assert port_runner.host_rss_gb() == 0.5
+    saved = []
+    runner = types.SimpleNamespace(mesh=make_mesh(), save=lambda *a: saved.append(a))
+    port_runner.rss_watchdog(runner, 0, 5, False, None, "silent")  # goes on
+    assert saved == []
+    status["text"] = "VmHWM:\t90000000 kB\nVmRSS:\t20000000 kB\n"
+    with pytest.raises(SystemExit) as stop:
+        port_runner.rss_watchdog(runner, 1, 5, False, None, "silent")
+    assert stop.value.code == 75 and [a[0] for a in saved] == ["ckpt-last"]
+    port_runner.rss_watchdog(runner, 4, 5, False, None, "silent")  # not after the last epoch
+    # the real reader, on this process: a 200 MB spike is gone from VmRSS once freed
+    monkeypatch.undo()
+    spike = np.ones(200 * 2**20 // 8)
+    high = port_runner.host_rss_gb()
+    del spike
+    assert 0 < port_runner.host_rss_gb() < high - 0.1

@@ -458,3 +458,35 @@ def test_save_freq_keeps_checkpoints_on_save_epochs(run_dir, capfd):
     assert last == [0, 2, 3]
     assert [e for p, e in saved if p == "ckpt-best"] == [0]
     assert [e for p, e in saved if p.startswith("ckpt-epoch")] == [3]
+
+
+def test_save_freq_writes_every_new_best(run_dir, capfd):
+    """``--save_freq 2`` over 4 epochs, validated every epoch, with the best
+    on epoch 1 (not a save epoch): ``ckpt-best`` is written on every
+    improvement, so it holds epoch 1's weights (the JAX runner writes it on
+    save epochs only and would lose them). CD-L1 readings 5, 3, 4, 6."""
+    from imgadapointr_tpu_torch.utils.metrics import METRIC_NAMES, Metrics
+
+    cfg = yaml.safe_load((run_dir / "local" / "small-pcn.yaml").read_text())
+    cfg["max_epoch"] = 4
+    (run_dir / "local" / "small-pcn4b.yaml").write_text(yaml.safe_dump(cfg))
+    readings = iter([5.0, 3.0, 4.0, 6.0])
+    weights = {}
+
+    def validate(runner, val_loader, epoch, logger=None, val_writer=None):
+        weights[epoch] = {k: v.clone() for k, v in runner.model.state_dict().items()}
+        cd = next(readings)
+        return Metrics("CDL1", [0.5 if n == "F-Score" else cd for n in METRIC_NAMES])
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_runner, "validate", validate)
+        _main("small-pcn4b", "--save_freq", "2")
+    capfd.readouterr()
+    exp = run_dir / "experiments" / "small-pcn4b" / "local" / "run"
+    best = torch.load(exp / "ckpt-best.pth", map_location="cpu", weights_only=False)
+    assert best["epoch"] == 1 and best["metrics"]["CDL1"] == 3.0
+    for k, v in best["base_model"].items():
+        assert torch.equal(v, weights[1][k]), k
+    assert not all(torch.equal(v, weights[2][k]) for k, v in best["base_model"].items())
+    last = torch.load(exp / "ckpt-last.pth", map_location="cpu", weights_only=False)
+    assert last["epoch"] == 3 and last["best_metrics"]["CDL1"] == 3.0
