@@ -142,9 +142,14 @@ Phases; any failure exits non-zero and prints no result line:
    - the KITTI finetune (``cfgs/KITTI_models/AdaPoinTr.yaml``: PCN cars, the
      ``CARS`` filter): 1 warm-up and ``TRAIN_STEPS`` steps at batch 16 with
      the train dropping (the table adds its FPS, 16 x 2048 -> 768, and its
-     gather), a profiled step. The KITTI test protocol draws its images
-     with matplotlib, which the card's machine lacks, so it is not driven
-     here (``tests/test_torch_recipes.py`` drives it on the CPU).
+     gather), a profiled step; then its test protocol on those weights
+     (:func:`kitti_test`) over a KITTI tree (``KITTI.json``,
+     ``cars/*.pcd``, ``bboxes/*.txt``) of ``KITTI_SCANS`` car-sized scans
+     read through the native reader: one 800 x 400 JPEG a scan (drawn by
+     ``utils/render.py``), each scan's launches a serving request's at
+     batch 1, the protocol's host ms a scan with its image, the scan's
+     forward timed and profiled (busy and wall), and the first scan's dense
+     cloud against the CPU forward in phase 3's serving band.
    Each recipe prints its median step (host clock), one profiled step's
    device busy and launches, the peak memory and the loader's host time a
    batch;
@@ -247,13 +252,16 @@ at C = 1 into 64³ rows.
    a. the serving CLI (``tools/inference.py``) on
       ``cfgs/PCN_models/AdaPoinTr.yaml`` with seeded weights saved as
       ``.pth``, over a ``--pc_root`` holding one synthetic partial cloud as
-      ``.npy``, ``.pcd``, ``.ply`` and ``.txt`` (and ``.h5`` where ``h5py``
-      imports): every ``fine.npy`` bit-equal to the model's own forward on
+      ``.npy``, ``.pcd``, ``.ply``, ``.txt`` and ``.h5`` (``utils/hdf5.py``,
+      no h5py): every ``fine.npy`` bit-equal to the model's own forward on
       the upsampled cloud (``.txt`` within ``TXT_ATOL``; ``np.savetxt``
       writes 19 digits), the launches those of a request at batch 1 without
-      the metrics, per file; the CLI again with ``--native_reader``, every
-      ``fine.npy`` the same bits; then ``PCReconstructor`` on the same
-      ``.pth``, one request, its table the same;
+      the metrics, per file; the CLI again with ``IO.use_native`` off (the
+      Python parsers), every ``fine.npy`` the same bits; the ``.h5`` cloud
+      alone with ``--save_vis_img`` (:func:`save_vis_check`: the ``.npy``'s
+      bits, one request's launches, two 480 x 480 JPEGs); then
+      ``PCReconstructor`` on the same ``.pth``, one request, its table the
+      same;
    b. ``PCReconstructor`` on the superset
       (``ImgEncSegDecAdaPoinTrVariableLoss``, seeded weights saved as
       ``.pth``): a ``.pcd`` cloud, a ``.png`` image (where PIL imports; else
@@ -415,6 +423,10 @@ N_SHAPENET = 8192
 B_VAL = 2  # phase 8's --val_bs
 NATIVE_ROUNDS = 4  # phase 8: rounds of the readers' whole-epoch readings, in turns
 NATIVE_PROCESS_TRIALS = 4  # phase 8: fresh 2-process loaders reading an epoch through the native reader
+KITTI_SCANS = 3  # phase 8: the KITTI test protocol's scans, one image each
+KITTI_IMAGE = (800, 400)  # JAX's KITTI figure: figsize (8, 4) at dpi 100
+CLI_IMAGE = (480, 480)  # JAX's --save_vis_img figure: figsize (4, 4) at dpi 120
+CAR_SIZE = (3.9, 1.6, 1.5)  # phase 8's KITTI scans: a car's box (length, width, height, metres)
 DROP_POINTS = 768  # the dropping's FPS prefix (ops/sampling.py:random_dropping)
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s,
 # float32 outside the tensor cores, and dense bf16 products with float32
@@ -3042,7 +3054,8 @@ SHAPENET_TAXONOMIES = ("02691156", "02958343", "03001627", "04379243")
 def root_paths(split_cfg, root: str) -> None:
     """Point a dataset split's ``data/...`` paths into ``root``, keeping the
     layout the config names."""
-    for key in ("CATEGORY_FILE_PATH", "PARTIAL_POINTS_PATH", "COMPLETE_POINTS_PATH", "DATA_PATH", "PC_PATH"):
+    for key in ("CATEGORY_FILE_PATH", "PARTIAL_POINTS_PATH", "COMPLETE_POINTS_PATH", "DATA_PATH", "PC_PATH",
+                "CLOUD_PATH", "BBOX_PATH"):
         if str(split_cfg.get(key, "")).startswith("data/"):
             split_cfg[key] = os.path.join(root, split_cfg[key][len("data/"):])
 
@@ -3456,12 +3469,116 @@ def shapenet_card_vs_cpu(runner, gts, seed: int, dev) -> dict:
     return {"crop_equal": True, **agree}
 
 
-def kitti_recipe(seed: int, root: str, workdir: str):
+def write_kitti_tree(test_cfg, seed: int) -> list:
+    """A KITTI test tree in the layout of ``cfgs/dataset_configs/KITTI.yaml``
+    (``KITTI.json``, ``cars/<name>.pcd``, ``bboxes/<name>.txt``), written
+    with the port's ``IO.put``: ``KITTI_SCANS`` scans of a smooth closed
+    surface the size of a car's box (``CAR_SIZE``), 6-20 m from the sensor
+    at the origin at a random yaw, each the side facing the sensor with
+    400-2400 jittered points, and the box's 8 corners (corner 3 less corner
+    0 along the length, as ``NormalizeObjectPose`` reads them). Returns the
+    scans' names."""
+    rng = np.random.default_rng(seed)
+    names = [f"frame_{i}_car_0" for i in range(KITTI_SCANS)]
+    half = np.array(CAR_SIZE) / 2
+    corners = np.array([[x, y, z] for z in (-half[2], half[2])
+                        for x, y in ((-half[0], -half[1]), (-half[0], half[1]), (half[0], half[1]), (half[0], -half[1]))])
+    for path in (test_cfg.CLOUD_PATH, test_cfg.BBOX_PATH, test_cfg.CATEGORY_FILE_PATH):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    for name in names:
+        yaw, dist, bearing = rng.uniform(-np.pi, np.pi), rng.uniform(6, 20), rng.uniform(-np.pi / 4, np.pi / 4)
+        rot = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]])
+        centre = np.array([dist * np.cos(bearing), dist * np.sin(bearing), -1.0])
+        surface = _surface_points(rng, 8000)
+        side = (surface / np.abs(surface).max(0) * half) @ rot.T
+        seen = side[side @ -centre > 0] + centre
+        pts = seen[rng.integers(0, len(seen), int(rng.integers(400, 2400)))]
+        IO.put(test_cfg.CLOUD_PATH % name, (pts + rng.normal(0, 0.01, pts.shape)).astype(np.float32))
+        IO.put(test_cfg.BBOX_PATH % name, (corners @ rot.T + centre).astype(np.float32))
+    with open(test_cfg.CATEGORY_FILE_PATH, "w") as f:
+        json.dump(names, f)
+    return names
+
+
+def kitti_test(runner, config, seed: int, root: str, workdir: str, dev) -> tuple:
+    """The KITTI test protocol (``test`` through ``cfgs/KITTI_models/AdaPoinTr.yaml``,
+    whose test split is ``cfgs/dataset_configs/KITTI.yaml``) on the
+    finetune's weights, from a tree written by :func:`write_kitti_tree`: one
+    ``KITTI_IMAGE`` JPEG a scan under ``vis_result/`` (``utils/render.py``),
+    each scan's launches those of a serving request at batch 1 (the scan is
+    upsampled to the split's ``N_POINTS``, 16384; the table's counts do not
+    depend on the input's size), the protocol's host time a scan, 3 timed
+    scan forwards and a profiled one (device busy and wall), and the first
+    scan's dense cloud against the CPU forward in phase 3's serving band
+    (clouds as sets, CD-L1 to the scan within 1e-2 relative; the last
+    ranking layer scaled by 1000 on both, as phase 5 does). Returns the
+    launch counts and a summary."""
+    from PIL import Image
+
+    test_cfg = config.dataset.test
+    root_paths(test_cfg, root)
+    names = write_kitti_tree(test_cfg, seed + 7)
+    test_cfg.others.bs = 1
+    args = recipe_args(seed, workdir)
+    _, loader = dataset_builder(args, test_cfg)
+    batches = [b for _, _, b in loader]
+    require(len(batches) == KITTI_SCANS, f"KITTI test: {len(batches)} scans, {KITTI_SCANS} written")
+    first = runner._to_device(batches[0])
+    require(tuple(first["partial"].shape) == (1, int(test_cfg.N_POINTS), 3),
+            f"KITTI test: a scan of shape {tuple(first['partial'].shape)}")
+
+    def scan() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            runner.predict(first)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    scan()  # warm-up at the scan's shapes
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = port_runner.test(runner, loader, args, config, "silent")
+    test_s = time.perf_counter() - t0
+    counts = {"kitti_test": check_launches("the KITTI test", serving_calls(config.model), KITTI_SCANS)}
+    require(out == {}, f"KITTI test: {out}")
+    want = [f"{name}_{i:03d}.jpg" for i, name in enumerate(names)]
+    vis = os.path.join(workdir, "vis_result")
+    require(sorted(os.listdir(vis)) == want, f"KITTI test: {sorted(os.listdir(vis))}, {want} expected")
+    for name in want:
+        with Image.open(os.path.join(vis, name)) as im:
+            require((im.format, im.size) == ("JPEG", KITTI_IMAGE), f"KITTI test {name}: {im.format} {im.size}")
+    scan_ms = [scan() * 1e3 for _ in range(3)]
+    prof = profile_run(scan)
+    model = runner.model.eval()
+    cpu_model = build_model(config.model, device="cpu", seed=seed)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    for m in (model, cpu_model):
+        with torch.no_grad():
+            m.base_model.query_ranking[4].weight.mul_(1000.0)
+    partial = batches[0]["partial"].numpy()
+    agree = cpu_agreement(model, cpu_model, {"partial": partial, "gt": partial}, dev)
+    require(min(agree["coarse_matched"], agree["fine_matched"]) >= 0.99,
+            "KITTI test: the card's clouds of the first scan disagree with the CPU's")
+    require(abs(agree["cd_l1_card"] - agree["cd_l1_cpu"]) <= 1e-2 * agree["cd_l1_cpu"],
+            "KITTI test: the card's CD-L1 to the first scan disagrees with the CPU's")
+    summary = {"scans": KITTI_SCANS, "points_per_scan": int(test_cfg.N_POINTS), "images": want,
+               "image_size": list(KITTI_IMAGE), "test_s": test_s,
+               "host_ms_per_scan_with_image": test_s / KITTI_SCANS * 1e3,
+               "scan_forward_ms": scan_ms, "median_scan_forward_ms": statistics.median(scan_ms),
+               "profiled_scan": {k: v for k, v in prof.items() if k != "top"},
+               "launches_per_scan": {k: v // KITTI_SCANS for k, v in counts["kitti_test"].items() if v},
+               "card_vs_cpu_first_scan": agree}
+    log("phase 8: the KITTI test protocol on the finetune's weights: " + json.dumps(summary))
+    return counts, summary
+
+
+def kitti_recipe(seed: int, dev, root: str, workdir: str):
     """The KITTI finetune (``cfgs/KITTI_models/AdaPoinTr.yaml``): PCN cars
     (``CARS``) from the PCN tree, 1 + ``TRAIN_STEPS`` steps at batch 16 with
     the dropping (the flagship's table plus the dropping's FPS and gather)
-    and a profiled step. Its test protocol draws images with matplotlib,
-    which the card's machine lacks: it is not driven here."""
+    and a profiled step; then its test protocol on the trained weights
+    (:func:`kitti_test`)."""
     config = cfg_from_yaml_file(KITTI)
     root_paths(config.dataset.train, root)
     config.dataset.train.others.bs = B_TRAIN
@@ -3473,15 +3590,18 @@ def kitti_recipe(seed: int, root: str, workdir: str):
     require(runner.train_aug == "dropping", f"KITTI: train_aug {runner.train_aug}")
     calls = merged(train_step_calls(config.model), dropping_calls(N_PARTIAL))
     counts, summary, _ = recipe_steps(runner, train_loader, calls, "the KITTI finetune's steps")
+    counts = {"kitti_train": counts}
+    more, summary["test"] = kitti_test(runner, config, seed, root, workdir, dev)
+    counts.update(more)
     del runner
     torch.cuda.empty_cache()
-    return {"kitti_train": counts}, summary
+    return counts, summary
 
 
 def recipes_phase(seed: int, dev, card: str):
     """Phase 8: the three recipes from trees written into a temporary
-    directory (removed at the end); returns the launch counts and the
-    summaries."""
+    directory (removed at the end), and the KITTI test protocol; returns
+    the launch counts and the summaries."""
     root = tempfile.mkdtemp(prefix="chip_smoke_data_")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -3491,7 +3611,7 @@ def recipes_phase(seed: int, dev, card: str):
         more, shapenet = shapenet_recipe(seed, dev, root, workdir)
         counts.update(more)
         log(f"phase 8: ShapeNet-55 recipe on {card}: " + json.dumps(shapenet))
-        more, kitti = kitti_recipe(seed, root, workdir)
+        more, kitti = kitti_recipe(seed, dev, root, workdir)
         counts.update(more)
         log(f"phase 8: KITTI finetune on {card}: " + json.dumps(kitti))
         log(f"phase 8: {time.perf_counter() - t0:.1f} s")
@@ -3955,13 +4075,7 @@ def cli_check(seed: int, dev, workdir: str) -> tuple:
     cloud = make_requests(cfg, seed + 10, 1, b=1)[0]["partial"][0][:N_CLI_PARTIAL]
     root = os.path.join(workdir, "clouds")
     os.makedirs(root)
-    formats = ["npy", "pcd", "ply", "txt"]
-    try:
-        import h5py  # noqa: F401  (IO's .h5 reader)
-
-        formats.append("h5")
-    except ImportError:
-        log("phase 10: h5py does not import here: no .h5 cloud")
+    formats = ["npy", "pcd", "ply", "txt", "h5"]
     for ext in formats:
         IO.put(os.path.join(root, f"cloud_{ext}.{ext}"), cloud)
     out = os.path.join(workdir, "cli_out")
@@ -3996,16 +4110,18 @@ def cli_check(seed: int, dev, workdir: str) -> tuple:
             require(txt_err <= TXT_ATOL, f"CLI .txt: {txt_err} from the model's own forward")
         else:
             require(np.array_equal(fine, want), f"CLI .{ext}: fine.npy differs from the model's own forward")
-    default = IO.use_native
-    try:  # --native_reader: every file's answer the same bits
-        port_inference.main(argv[:-3] + [out + "_native", "--device", dev.type, "--native_reader"])
-        require(IO.use_native, "the CLI's --native_reader did not set IO.use_native")
+    require(IO.use_native, "IO.use_native is off by default")
+    try:  # the Python parsers in place of the native reader: every file's answer the same bits
+        IO.use_native = False
+        port_inference.main(argv[:-3] + [out + "_python", "--device", dev.type])
     finally:
-        IO.use_native = default
+        IO.use_native = True
     for ext in formats:
-        require(np.array_equal(np.load(os.path.join(out + "_native", f"cloud_{ext}", "fine.npy")),
+        require(np.array_equal(np.load(os.path.join(out + "_python", f"cloud_{ext}", "fine.npy")),
                                np.load(os.path.join(out, f"cloud_{ext}", "fine.npy"))),
-                f"CLI .{ext}: --native_reader changes fine.npy")
+                f"CLI .{ext}: the Python parsers change fine.npy")
+    vis, vis_ms = save_vis_check(cfg, ckpt, os.path.join(root, "cloud_h5.h5"), out, workdir, dev)
+    counts["cli_h5_save_vis_img"] = vis
     rec = PCReconstructor(CONFIG, ckpt, device=dev.type)
     pcd = os.path.join(root, "cloud_pcd.pcd")
     rec.predict(pcd)  # warm-up
@@ -4015,13 +4131,37 @@ def cli_check(seed: int, dev, workdir: str) -> tuple:
     tiled = rec.preprocess_point_cloud(pcd)
     require(np.array_equal(got, own_forward(model, [tiled], dev)),
             "PCReconstructor (flagship): differs from the model's own forward")
-    summary = {"formats": formats, "files": len(formats), "cli_main_ms": secs * 1e3,
+    summary = {"formats": formats, "files": len(formats), "cli_main_ms": secs * 1e3, "h5_save_vis_img_ms": vis_ms,
                "file_ms": {name: t * 1e3 for name, t in per_file}, "txt_max_abs_err": txt_err,
                "launches_per_request": {k: v // len(formats) for k, v in counts["cli"].items() if v}}
     log(f"phase 10: the CLI over {len(formats)} files ({', '.join(formats)}) on the card: every fine.npy "
         f"equal to the model's own forward (.txt within {txt_err:.3g}); " + json.dumps(summary))
     del model, rec
     return counts, summary
+
+
+def save_vis_check(cfg, ckpt: str, h5: str, out: str, workdir: str, dev) -> tuple:
+    """The CLI once more on the ``.h5`` cloud alone, with ``--save_vis_img``:
+    its ``fine.npy`` the same bits as the ``.npy`` cloud's in ``out``, its
+    launches one request's, and ``input.jpg`` and ``fine.jpg`` of
+    ``CLI_IMAGE`` (``utils/render.py``); returns the launch counts and the
+    host ms of the request, images included."""
+    from PIL import Image
+
+    vis = os.path.join(workdir, "cli_vis")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    port_inference.main(["--model_config", CONFIG, "--model_checkpoint", ckpt, "--pc", h5, "--out_pc_root", vis,
+                         "--save_vis_img", "--device", dev.type])
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = check_launches("the CLI's .h5 request with --save_vis_img", serving_calls(cfg), 1)
+    require(np.array_equal(np.load(os.path.join(vis, "cloud_h5", "fine.npy")),
+                           np.load(os.path.join(out, "cloud_npy", "fine.npy"))),
+            "CLI .h5 with --save_vis_img: fine.npy differs from the .npy cloud's")
+    for name in ("input.jpg", "fine.jpg"):
+        with Image.open(os.path.join(vis, "cloud_h5", name)) as im:
+            require((im.format, im.size) == ("JPEG", CLI_IMAGE), f"CLI --save_vis_img {name}: {im.format} {im.size}")
+    return counts, ms
 
 
 def reconstructor_check(seed: int, dev, card: str, workdir: str) -> tuple:
@@ -4791,9 +4931,11 @@ def main(argv=None) -> int:
             "launches_per_pcn_train_step": counts["pcn_train"][name] // TRAIN_STEPS,
             "launches_per_shapenet55_train_step": counts["shapenet_train"][name] // TRAIN_STEPS,
             "launches_per_kitti_train_step": counts["kitti_train"][name] // TRAIN_STEPS,
+            "launches_per_kitti_test_scan": counts["kitti_test"][name] // KITTI_SCANS,
             "launches_shapenet55_test_batch": {m: counts[f"shapenet_test_{m}"][name] // (EVAL_CLOUDS // B_VAL)
                                                for m in port_runner.CROP_RATIO},
             "launches_per_cli_request": counts["cli"][name] // entry_summary["cli"]["files"],
+            "launches_cli_h5_save_vis_img": counts["cli_h5_save_vis_img"][name],
             "launches_per_reconstructor_request": {
                 "flagship": counts["reconstructor_flagship"][name],
                 "superset": counts["reconstructor_superset"][name] // REQUESTS},

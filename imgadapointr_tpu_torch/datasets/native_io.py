@@ -10,10 +10,10 @@ read files in parallel. The build holds a file lock, so loader processes
 or ranks that start together build it once; a tree copied to another
 machine builds its own.
 
-``IO.use_native`` (``utils/io_module.py``, off by default; the entry
-points' ``--native_reader``) routes ``IO.get`` through it, in a loader's
-worker processes too. There is no silent fallback: a failed build or load
-raises with the compiler's message. A file variant the reader cannot parse
+``IO.use_native`` (``utils/io_module.py``, on by default, as in the JAX
+package) routes ``IO.get`` through it, in a loader's worker processes too.
+There is no silent fallback, unlike JAX's: a failed build or load raises
+with the compiler's message. A file variant the reader cannot parse
 (:func:`read_cloud` returns None: a missing file, an ``.npy`` that is not
 (N, 3) float32 or float64, a compressed PCD) goes to the Python parser for
 that call.

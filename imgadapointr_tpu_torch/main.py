@@ -40,7 +40,6 @@ import torch.distributed as tdist
 
 from .tools.runner import run_net, test_net
 from .utils.config import get_config
-from .utils.io_module import IO
 from .utils.logger import get_logger, print_log
 from .utils.parser import get_args
 
@@ -121,7 +120,6 @@ def _main(args, rank: int):
     args.logger = logger = get_logger(args.log_name, log_file) if rank == 0 else "silent"
 
     config = get_config(args)
-    IO.use_native = args.native_reader
     if args.synthetic:
         swap_synthetic(config, train_len=args.syn_train_len)
     config.dataset.train.others.bs = config.total_bs

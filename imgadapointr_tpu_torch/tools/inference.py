@@ -7,16 +7,15 @@ Usage:
         --pc partial.pcd --out_pc_root out/ [--save_vis_img] [--device cuda]
 
 Flags follow ``imgadapointr_tpu/tools/inference.py:25-36`` plus
-``--device`` (default ``cuda``; the CPU runs only when asked for) and
-``--native_reader`` (``IO.use_native``, see ``utils/io_module.py``). The
+``--device`` (default ``cuda``; the CPU runs only when asked for). The
 checkpoint is a reference-layout torch state dict (``.pth``/``.pt``, the
 port's own checkpoints among them) or a JAX ``.ckpt``
 (:func:`tools.convert.load_weights`). A cloud is any format ``IO.get``
 reads; a ``--pc_root`` directory is read for ``.npy``, ``.pcd``, ``.ply``,
 ``.txt``, ``.xyz`` and ``.h5`` files. Each cloud is upsampled to 2048
 points and its completion written to ``<out_pc_root>/<name>/fine.npy``,
-with ``input.jpg`` and ``fine.jpg`` renders (matplotlib) under
-``--save_vis_img``.
+with ``input.jpg`` and ``fine.jpg`` renders (``utils/render.py``, numpy
+and PIL) under ``--save_vis_img``.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from ..datasets.transforms import UpSamplePoints
 from ..models import build_model
 from ..utils.config import cfg_from_yaml_file
 from ..utils.device import resolve_device
+from ..utils import render
 from ..utils.io_module import IO
 from .convert import load_weights
 
@@ -46,8 +46,6 @@ def get_args(argv=None):
     parser.add_argument("--out_pc_root", type=str, default="", help="output dir")
     parser.add_argument("--save_vis_img", action="store_true", default=False)
     parser.add_argument("--device", type=str, default="cuda")
-    parser.add_argument("--native_reader", action="store_true",
-                        help="read .pcd, .ply and .npy through the native reader (datasets/native_io.py)")
     args = parser.parse_args(argv)
     if not (args.save_vis_img or args.out_pc_root):
         parser.error("one of --out_pc_root / --save_vis_img is required")
@@ -98,24 +96,14 @@ def inference_single(model, pc_path: str, args, config, root: str | None = None)
 
 def save_vis(target: str, partial: np.ndarray, dense: np.ndarray) -> None:
     """``input.jpg`` and ``fine.jpg``: the (upsampled) input and the
-    completion as 3-D scatter plots (JAX ``tools/inference.py:104-116``)."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    completion as 3-D scatter plots (JAX ``tools/inference.py:107-118``),
+    drawn by ``utils/render.py``."""
     for name, cloud in (("input", partial), ("fine", dense)):
-        fig = plt.figure(figsize=(4, 4))
-        ax = fig.add_subplot(projection="3d")
-        ax.scatter(cloud[:, 0], cloud[:, 1], cloud[:, 2], s=0.5)
-        ax.set_axis_off()
-        fig.savefig(os.path.join(target, f"{name}.jpg"), dpi=120)
-        plt.close(fig)
+        render.save_cloud(os.path.join(target, f"{name}.jpg"), cloud)
 
 
 def main(argv=None):
     args = get_args(argv)
-    IO.use_native = args.native_reader
     config, model = build(args)
     if args.pc_root:
         for f in sorted(os.listdir(args.pc_root)):

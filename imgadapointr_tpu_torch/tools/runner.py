@@ -51,6 +51,7 @@ from ..ops.chamfer import _sqrt_floor, points_axis_sharding
 from ..parallel.dist import data_parallel
 from ..parallel.mesh import (TensorParallel, broadcast_state, clip_grad_norm, make_mesh, reduce_gradients,
                              reduce_max, reduce_mean, reduce_tensors)
+from ..utils import render
 from ..utils.average_meter import AverageMeter
 from ..utils.checkpoint import checkpoint_path, load_checkpoint, load_jax_checkpoint, save_checkpoint
 from ..utils.device import deterministic_cudnn, resolve_device
@@ -691,23 +692,13 @@ def _test_kitti(runner: Runner, test_loader, args, config, logger=None) -> dict:
     """The KITTI protocol (``imgadapointr_tpu/tools/runner.py:909-931``): no
     ground truth, so no metric; one image a cloud of its input and its
     completion, ``<model_id>_<index>.jpg`` under ``vis_result/`` of the
-    experiment. matplotlib is imported here only."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    experiment, drawn as JAX's matplotlib figure by ``utils/render.py``."""
     target_path = os.path.join(args.experiment_path, "vis_result")
     os.makedirs(target_path, exist_ok=True)
     for idx, (_, model_ids, batch) in enumerate(test_loader):
-        _, dense = runner.predict(runner._to_device(batch))
+        with torch.inference_mode():
+            _, dense = runner.predict(runner._to_device(batch))
         partial, dense = batch["partial"][0].numpy(), dense[0].float().cpu().numpy()
-        fig, axes = plt.subplots(1, 2, figsize=(8, 4), subplot_kw={"projection": "3d"})
-        for ax, cloud, title in zip(axes, (partial, dense), ("input", "prediction")):
-            ax.scatter(cloud[:, 0], cloud[:, 1], cloud[:, 2], s=0.4)
-            ax.set_title(title)
-            ax.set_axis_off()
-        fig.savefig(os.path.join(target_path, f"{model_ids[0]}_{idx:03d}.jpg"), dpi=100)
-        plt.close(fig)
+        render.save_kitti(os.path.join(target_path, f"{model_ids[0]}_{idx:03d}.jpg"), partial, dense)
     print_log(f"[KITTI] visualisations saved to {target_path}", logger)
     return {}

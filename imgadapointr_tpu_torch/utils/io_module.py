@@ -4,19 +4,17 @@
 The port's own copy of the pure-Python parsers of
 ``imgadapointr_tpu/utils/io_module.py:55-167`` (ASCII and binary ``.pcd``,
 ASCII and binary little-endian ``.ply``), so that a file reads into the same
-float32 array in both packages. With ``IO.use_native`` set (the entry
-points' ``--native_reader``), ``.pcd``, ``.ply`` and ``.npy`` go through
-the port's native reader (``datasets/native_io.py``, a ctypes call that
-releases the GIL), as the JAX package routes them by default; a file it
-cannot parse goes to these parsers, which it matches bit for bit. The
-port leaves it off by default: the reader's first version crashed some
-processes on the H100 machines, for a cause never found, and the current
-one has passed only a few runs (PERF.md §6). ``h5py`` is imported only by
-the ``.h5`` reader and writer. Unlike the JAX parser, the ``.ply`` reader
-keeps the vertex properties when another element (a mesh's faces)
-follows them. :meth:`IO.put` writes every format
-:meth:`IO.get` reads: ``.pcd`` in the binary layout the PCN dataset ships,
-``.npz`` under the key ``pts``, ``.h5`` under the key ``data``.
+float32 array in both packages. With ``IO.use_native`` set, as it is by
+default in both packages, ``.pcd``, ``.ply`` and ``.npy`` go through the
+port's native reader (``datasets/native_io.py``, a ctypes call that
+releases the GIL); a file it cannot parse goes to these parsers, which it
+matches bit for bit. Unlike JAX's, a reader that fails to build raises.
+``.h5`` goes through ``utils/hdf5.py`` (numpy, ``struct`` and ``zlib``;
+no h5py). Unlike the JAX parser, the ``.ply`` reader keeps the vertex
+properties when another element (a mesh's faces) follows them.
+:meth:`IO.put` writes every format :meth:`IO.get` reads: ``.pcd`` in the
+binary layout the PCN dataset ships, ``.npz`` under the key ``pts``,
+``.h5`` under the key ``data`` in the layout h5py writes by default.
 """
 
 from __future__ import annotations
@@ -24,6 +22,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from . import hdf5
 
 # PCD TYPE and SIZE -> numpy type
 _PCD_TYPES = {("F", 4): "f4", ("F", 8): "f8", ("U", 1): "u1", ("U", 2): "u2", ("U", 4): "u4",
@@ -34,7 +34,7 @@ _PLY_TYPES = {"float": "f4", "float32": "f4", "double": "f8", "uchar": "u1", "ui
 
 
 class IO:
-    use_native = False  # .pcd, .ply and .npy through datasets/native_io.py when set (--native_reader)
+    use_native = True  # .pcd, .ply and .npy through datasets/native_io.py, as in the JAX package
 
     @classmethod
     def get(cls, file_path: str) -> np.ndarray:
@@ -54,10 +54,7 @@ class IO:
         if ext == ".ply":
             return cls._read_ply(file_path)
         if ext == ".h5":
-            import h5py
-
-            with h5py.File(file_path, "r") as f:
-                return f["data"][()].astype(np.float32)
+            return hdf5.read(file_path).astype(np.float32)
         if ext in (".txt", ".dat", ".xyz"):
             return np.loadtxt(file_path).astype(np.float32)
         raise ValueError(f"Unsupported file extension: {ext}")
@@ -74,10 +71,7 @@ class IO:
         elif ext == ".ply":
             cls._write_ply(file_path, arr)
         elif ext == ".h5":
-            import h5py
-
-            with h5py.File(file_path, "w") as f:
-                f.create_dataset("data", data=arr)
+            hdf5.write(file_path, arr)
         elif ext in (".txt", ".dat", ".xyz"):
             np.savetxt(file_path, arr)
         else:

@@ -1,9 +1,7 @@
 """Command-line flags of the train / test entry point.
 
 The flags of ``imgadapointr_tpu/utils/parser.py``, plus ``--device``
-(default ``cuda``; the CPU runs only when asked for) and
-``--native_reader`` (``IO.use_native``: the point-cloud files through the
-native reader, which the JAX package uses by default). ``experiments/`` goes
+(default ``cuda``; the CPU runs only when asked for). ``experiments/`` goes
 under the current directory; ``args.tfboard_path`` is
 ``experiments/<stem>/<parent>/TFBoard/<exp_name>`` (the TensorBoard
 writers' and ``--profile``'s directory).
@@ -44,8 +42,6 @@ def get_args(argv=None):
     parser.add_argument("--num_workers", type=int, default=8, help="loader workers")
     parser.add_argument("--worker_mode", choices=["thread", "process"], default="thread",
                         help="loader workers: threads of this process (default) or worker processes")
-    parser.add_argument("--native_reader", action="store_true",
-                        help="read .pcd, .ply and .npy through the native reader (datasets/native_io.py)")
     parser.add_argument("--val_freq", type=int, default=1, help="validate every N epochs")
     parser.add_argument("--save_freq", type=int, default=1,
                         help="ckpt-best and ckpt-last every N epochs (and on the last two)")

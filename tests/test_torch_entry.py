@@ -57,7 +57,7 @@ from imgadapointr_tpu.utils import checkpoint as jax_checkpoint
 from imgadapointr_tpu.utils import parser as jax_parser
 from imgadapointr_tpu.utils.config import cfg_from_yaml_file as jax_cfg
 from imgadapointr_tpu_torch import main as port_main
-from imgadapointr_tpu_torch.datasets import DATASETS
+from imgadapointr_tpu_torch.datasets import DATASETS, native_io
 from imgadapointr_tpu_torch.datasets.loader import Loader
 from imgadapointr_tpu_torch.demo import PCReconstructor
 from imgadapointr_tpu_torch.tools import inference
@@ -126,7 +126,6 @@ def a_cloud(n: int = 700, seed: int = 0) -> np.ndarray:
 
 
 def test_cli_serves_a_jax_checkpoint_in_every_format(tmp_path, one_torch_thread, monkeypatch):
-    monkeypatch.setattr(IO, "use_native", IO.use_native)  # restored after --native_reader sets it
     jax_weights(TINY, tmp_path / "exp", seed=7)
     ckpt = str(tmp_path / "exp" / "ckpt-best.ckpt")
     root = tmp_path / "clouds"
@@ -150,14 +149,16 @@ def test_cli_serves_a_jax_checkpoint_in_every_format(tmp_path, one_torch_thread,
         np.testing.assert_allclose(fine, want, rtol=0, atol=SERVE_ATOL, err_msg=ext)
         for name in ("input.jpg", "fine.jpg"):
             assert (tmp_path / "port" / f"cloud_{ext}" / name).stat().st_size > 0
-    # one cloud by --pc, a .pth of the same weights, through the native reader: the same answer
+    # one cloud by --pc, a .pth of the same weights, through the native reader (the default): the same answer
     model = inference.build(inference.get_args(["--model_config", TINY, "--model_checkpoint", ckpt,
                                                 "--pc", "x", "--out_pc_root", "y", "--device", "cpu"]))[1]
     torch.save({"base_model": model.state_dict()}, tmp_path / "w.pth")
+    read = []
+    real = native_io.read_cloud
+    monkeypatch.setattr(native_io, "read_cloud", lambda p: read.append(p) or real(p))
     inference.main(["--model_config", TINY, "--model_checkpoint", str(tmp_path / "w.pth"), "--pc",
-                    str(root / "cloud_pcd.pcd"), "--out_pc_root", str(tmp_path / "pth"), "--device", "cpu",
-                    "--native_reader"])
-    assert IO.use_native
+                    str(root / "cloud_pcd.pcd"), "--out_pc_root", str(tmp_path / "pth"), "--device", "cpu"])
+    assert IO.use_native and read == [str(root / "cloud_pcd.pcd")]
     np.testing.assert_array_equal(np.load(tmp_path / "pth" / "cloud_pcd" / "fine.npy"), got["pcd"])
 
 

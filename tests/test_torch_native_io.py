@@ -14,7 +14,8 @@
   same files and seed, bit for bit; a missing file gives None from
   ``read_cloud`` and from ``load_batch``.
 - A failed build raises with the compiler's message (no silent fallback).
-- ``IO.use_native`` is off by default (the Python parsers answer).
+- ``IO.use_native`` is on by default, as in the JAX package (the native
+  reader answers).
 """
 
 import os
@@ -162,17 +163,18 @@ def test_failed_build_raises_with_the_compiler_message(tmp_path, monkeypatch):
 
 
 
-def test_native_reader_is_off_by_default(tmp_path, cloud, monkeypatch):
-    """``IO.get`` reads with the Python parsers unless ``IO.use_native`` is set."""
-    assert IO.use_native is False
-    p = str(tmp_path / "d.pcd")
-    IO.put(p, cloud)
-
-    def refuse(path):
-        raise AssertionError("the native reader ran")
-
-    monkeypatch.setattr(native_io, "read_cloud", refuse)
-    np.testing.assert_array_equal(IO.get(p), cloud)
+def test_native_reader_is_on_by_default(tmp_path, cloud, monkeypatch):
+    """``IO.get`` reads ``.pcd``, ``.ply`` and ``.npy`` with the native reader
+    unless ``IO.use_native`` is cleared, as the JAX package does."""
+    assert IO.use_native is True
+    calls = []
+    real = native_io.read_cloud
+    monkeypatch.setattr(native_io, "read_cloud", lambda p: calls.append(p) or real(p))
+    paths = [str(tmp_path / f"d.{ext}") for ext in ("pcd", "ply", "npy")]
+    for p in paths:
+        IO.put(p, cloud)
+        np.testing.assert_array_equal(IO.get(p), cloud)
+    assert calls == paths
 
 
 def test_worker_processes_read_with_the_loaders_reader(monkeypatch):

@@ -19,7 +19,7 @@ canonical init carried across by the converter, in float64 on both sides
   pass costs about a second a crop, so these runs take two of the 8
   viewpoints (patched alike into both packages; the constants are held
   equal, and ``chip_smoke.py`` and the entry-point test run all 8);
-- the KITTI protocol writes one image a cloud;
+- the KITTI protocol writes one 800 x 400 image a cloud;
 - ``python -m imgadapointr_tpu_torch.main --device cpu`` trains, validates
   and tests (``--val_bs 2``) from a written PCN tree, and trains and tests
   (``--mode hard``) from a written ShapeNet-55 tree.
@@ -40,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from PIL import Image
 from test_torch_seg import one_torch_thread  # noqa: F401  (a fixture)
 
 import imgadapointr_tpu.ops as jops
@@ -331,7 +332,8 @@ def test_shapenet55_protocol_matches_jax(jax_protocol, variables, shapenet_gts, 
 
 def test_kitti_protocol_writes_one_image_a_cloud(variables, tmp_path):
     """The KITTI reader on a written tree at batch 1, through ``test``:
-    ``<model_id>_<index>.jpg`` for each cloud, and no metric."""
+    ``<model_id>_<index>.jpg`` for each cloud, an 800 x 400 JPEG, and no
+    metric."""
     rng = np.random.default_rng(41)
     (tmp_path / "cars").mkdir()
     (tmp_path / "bboxes").mkdir()
@@ -349,8 +351,11 @@ def test_kitti_protocol_writes_one_image_a_cloud(variables, tmp_path):
     args = types.SimpleNamespace(seed=0, num_workers=0, experiment_path=str(tmp_path / "exp"))
     _, loader = port_runner.dataset_builder(args, cfg.dataset.test)
     assert port_runner.test(runner, loader, args, cfg, "silent") == {}
-    images = sorted(p.name for p in (tmp_path / "exp" / "vis_result").iterdir())
-    assert images == [f"{names[0]}_000.jpg", f"{names[1]}_001.jpg"]
+    images = sorted((tmp_path / "exp" / "vis_result").iterdir())
+    assert [p.name for p in images] == [f"{names[0]}_000.jpg", f"{names[1]}_001.jpg"]
+    for p in images:  # JAX's figsize (8, 4) at dpi 100
+        with Image.open(p) as im:
+            assert (im.format, im.size) == ("JPEG", (800, 400))
 
 
 # ---------------------------------------------------------------- entry point
