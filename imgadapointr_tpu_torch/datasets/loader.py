@@ -29,22 +29,32 @@ ends through the interpreter's whole shutdown, where a worker stopped with
 batches still in flight was seen to abort (``terminate called without an
 active exception``); a forkserver child leaves by ``os._exit``.
 A batch is ``(taxonomy_ids, model_ids, {key: stacked tensor})``.
+
+The loader counts its work through the port's counters
+(``utils/trace.py``, :data:`LOADER_COUNTERS`): batches handed out, the
+consumer's seconds waiting for the next batch, and the seconds spent
+decoding samples, on the wall clock and on the decoding thread's CPU clock
+(``time.thread_time``). Worker processes count in their own processes,
+where nobody reads the counters.
 """
 
 from __future__ import annotations
 
 import collections
 import functools
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 from torch.utils.data import DataLoader, Dataset, Sampler
 
+from ..utils import trace
 from ..utils.io_module import IO
 
 WORKER_MODES = ("thread", "process")
 PREFETCH = 2  # batches the thread pool decodes ahead of the one in use
+LOADER_COUNTERS = ("loader.batches", "loader.wait_s", "loader.decode_s", "loader.decode_cpu_s")
 
 
 def base_seed(seed: int, epoch: int) -> int:
@@ -95,7 +105,11 @@ class SeededSamples(Dataset):
 
     def __getitem__(self, key):
         i, base = key
-        return self.dataset.get(i, np.random.default_rng((base, i)))
+        wall, cpu = time.perf_counter(), time.thread_time()
+        sample = self.dataset.get(i, np.random.default_rng((base, i)))
+        trace.count("loader.decode_s", time.perf_counter() - wall)
+        trace.count("loader.decode_cpu_s", time.thread_time() - cpu)
+        return sample
 
 
 def _set_reader(use_native: bool, _worker_id: int) -> None:
@@ -110,6 +124,23 @@ def collate(samples) -> tuple:
     keys = samples[0][2].keys()
     return ([s[0] for s in samples], [s[1] for s in samples],
             {k: torch.from_numpy(np.stack([s[2][k] for s in samples])) for k in keys})
+
+
+def _counted(batches):
+    """``batches``, each counted with the consumer's wait for it."""
+    try:
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(batches)
+            except StopIteration:
+                return
+            trace.count("loader.wait_s", time.perf_counter() - t)
+            trace.count("loader.batches")
+            yield batch
+    finally:  # an epoch left early closes the thread pool's generator at once
+        if hasattr(batches, "close"):
+            batches.close()
 
 
 class Loader(DataLoader):
@@ -137,9 +168,7 @@ class Loader(DataLoader):
         self.sampler.set_epoch(epoch)
 
     def __iter__(self):
-        if self.threads:
-            return self._thread_batches()
-        return super().__iter__()
+        return _counted(self._thread_batches() if self.threads else super().__iter__())
 
     def _thread_batches(self):
         """The epoch's batches, decoded by the thread pool ``PREFETCH``

@@ -21,6 +21,7 @@ from torch import nn
 from ..nn.heads import Fold, SimpleRebuildFCLayer
 from ..nn.layers import (BatchNorm, ConcatDense, Linear, init_weights_, set_dropout_generator,
                          stochastic_layers)
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.registry import MODELS
 from .losses import adapointr_loss, variable_alpha
@@ -84,19 +85,20 @@ class AdaPoinTr(nn.Module):
         q, coarse, L = self.base_model(xyz, img_feat=img_feat, seg_fn=seg_fn, cls_vec=cls_vec,
                                        generator=generator, noise=noise)
         B = q.shape[0]
-        global_feature = self.increase_dim(q).amax(dim=1)  # (B, 1024)
-        rf = self.reduce_map(global_feature[:, None], q, coarse)
-        if isinstance(self.decode_head, Fold):
-            M, C = rf.shape[1:]
-            relative = self.decode_head(rf.reshape(B * M, C)).reshape(B, M, self.factor, 3)
-        else:
-            relative = self.decode_head(rf)
-        rebuild = relative + coarse[:, :, None]  # (B, M, S, 3)
-        if not self.training:
-            return coarse, rebuild.reshape(B, -1, 3)
-        pred_fine = rebuild[:, :-L].reshape(B, -1, 3)
-        denoised_fine = rebuild[:, -L:].reshape(B, -1, 3)
-        return coarse[:, :-L], coarse[:, -L:], denoised_fine, pred_fine
+        with trace.span("model.head"):
+            global_feature = self.increase_dim(q).amax(dim=1)  # (B, 1024)
+            rf = self.reduce_map(global_feature[:, None], q, coarse)
+            if isinstance(self.decode_head, Fold):
+                M, C = rf.shape[1:]
+                relative = self.decode_head(rf.reshape(B * M, C)).reshape(B, M, self.factor, 3)
+            else:
+                relative = self.decode_head(rf)
+            rebuild = relative + coarse[:, :, None]  # (B, M, S, 3)
+            if not self.training:
+                return coarse, rebuild.reshape(B, -1, 3)
+            pred_fine = rebuild[:, :-L].reshape(B, -1, 3)
+            denoised_fine = rebuild[:, -L:].reshape(B, -1, 3)
+            return coarse[:, :-L], coarse[:, -L:], denoised_fine, pred_fine
 
     def loss(self, ret, gt: torch.Tensor, epoch_f: float):
         """``(loss_denoised, loss_recon)`` of the train-mode return ``ret``

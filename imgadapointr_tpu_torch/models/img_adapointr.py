@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from ..utils.config import AttrDict
 from ..utils.registry import MODELS
 from .adapointr import AdaPoinTr, place
@@ -36,8 +37,10 @@ class ImgAdaPoinTr(AdaPoinTr):
                 generator: torch.Generator | None = None, noise: torch.Tensor | None = None):
         """``bn_momentum``, ``generator`` and ``noise`` as in
         :meth:`AdaPoinTr.forward`; the momentum reaches the ResNet too."""
+        with trace.span("branch.image_encoder"):
+            img_feat = self.base_model.im_encoder(img, bn_momentum)
         return super().forward(xyz, bn_momentum=bn_momentum, generator=generator, noise=noise,
-                               img_feat=self.base_model.im_encoder(img, bn_momentum))
+                               img_feat=img_feat)
 
 
 @MODELS.register_module(name="ImgResNetEncAdaPoinTrVariableLoss")

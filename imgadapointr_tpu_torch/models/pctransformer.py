@@ -33,6 +33,7 @@ from ..nn.grouper import DGCNNGrouper, SimpleEncoder
 from ..nn.image_encoders import ResNet18Encoder
 from ..nn.layers import ConcatDense, Linear
 from ..parallel.dist import global_draw
+from ..utils import trace
 from .fusion import SEG_FEATURES, AttentionFusion, image_tokens_width
 from .gdanet import GDANet
 
@@ -103,37 +104,48 @@ class PCTransformer(nn.Module):
             # in module order (jitter_points would draw the same tensor)
             noise = global_draw(torch.randn, (B, DENOISE_LENGTH, 3), generator=generator, dtype=xyz.dtype,
                                 device=xyz.device)
-        coor, f = self.grouper(xyz, self.center_num)
-        x = self.encoder(self.input_proj(f) + self.pos_embed(coor), coor)
+        with trace.span("model.grouper"):
+            coor, f = self.grouper(xyz, self.center_num)
+        with trace.span("model.encoder"):
+            x = self.encoder(self.input_proj(f) + self.pos_embed(coor), coor)
         if self.img_fusion is not None:
-            x = self.img_fusion(x, img_feat)
+            with trace.span("branch.img_fusion"):
+                x = self.img_fusion(x, img_feat)
         if self.seg_before_enc:
-            x = self.seg_fusion(x, seg_fn(coor, cls_vec))
+            with trace.span("branch.gdanet"):
+                seg = seg_fn(coor, cls_vec)
+            with trace.span("branch.seg_fusion"):
+                x = self.seg_fusion(x, seg)
 
-        global_feature = self.increase_dim(x).amax(dim=1)  # (B, gfd)
-        coarse = self.coarse_pred(global_feature).reshape(B, self.num_query, 3)
-        coarse = torch.cat([coarse, ops.fps(xyz, self.num_query // 2)], dim=1)
-        mem = x if self.mem_link is None else self.mem_link(x)
+        with trace.span("model.query"):
+            global_feature = self.increase_dim(x).amax(dim=1)  # (B, gfd)
+            coarse = self.coarse_pred(global_feature).reshape(B, self.num_query, 3)
+            coarse = torch.cat([coarse, ops.fps(xyz, self.num_query // 2)], dim=1)
+            mem = x if self.mem_link is None else self.mem_link(x)
 
-        # top num_query by ranking score, in jax.lax.top_k's order:
-        # descending, ties to the lower index (a stable ascending sort of -r).
-        # Only the indices are used, so query_ranking gets no gradient and
-        # its parameters keep grad None (the reference's zero-grad subtree).
-        r = self.query_ranking(coarse)[..., 0]
-        idx = torch.sort(-r, dim=-1, stable=True).indices[:, : self.num_query]
-        coarse = ops.index_points(coarse, idx)
+            # top num_query by ranking score, in jax.lax.top_k's order:
+            # descending, ties to the lower index (a stable ascending sort of -r).
+            # Only the indices are used, so query_ranking gets no gradient and
+            # its parameters keep grad None (the reference's zero-grad subtree).
+            r = self.query_ranking(coarse)[..., 0]
+            idx = torch.sort(-r, dim=-1, stable=True).indices[:, : self.num_query]
+            coarse = ops.index_points(coarse, idx)
 
-        denoise_length = 0
-        if self.training:
-            denoise_length = DENOISE_LENGTH
-            picked = ops.jitter_points(ops.fps(xyz, denoise_length), generator, noise=noise)
-            coarse = torch.cat([coarse, picked], dim=1)
+            denoise_length = 0
+            if self.training:
+                denoise_length = DENOISE_LENGTH
+                picked = ops.jitter_points(ops.fps(xyz, denoise_length), generator, noise=noise)
+                coarse = torch.cat([coarse, picked], dim=1)
 
-        q = self.mlp_query[0](global_feature[:, None, :], coarse)
-        q = self.mlp_query[1:](q)
-        q = self.decoder(q, mem, coarse, coor, denoise_length=denoise_length)
+            q = self.mlp_query[0](global_feature[:, None, :], coarse)
+            q = self.mlp_query[1:](q)
+        with trace.span("model.decoder"):
+            q = self.decoder(q, mem, coarse, coor, denoise_length=denoise_length)
         if self.seg_before_dec:  # on the non-denoise queries only
             n_real = q.shape[1] - denoise_length
-            q_real = self.seg_fusion(q[:, :n_real], seg_fn(coarse[:, :n_real], cls_vec))
+            with trace.span("branch.gdanet"):
+                seg = seg_fn(coarse[:, :n_real], cls_vec)
+            with trace.span("branch.seg_fusion"):
+                q_real = self.seg_fusion(q[:, :n_real], seg)
             q = torch.cat([q_real, q[:, n_real:]], dim=1) if denoise_length else q_real
         return q, coarse, denoise_length

@@ -30,6 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import estimate_pointcloud_normals
+from ..utils import trace
 from ..utils.envflags import env_flag
 from ..utils.registry import MODELS
 from .adapointr import AdaPoinTr, place
@@ -98,8 +99,10 @@ class ImgEncSegDecAdaPoinTr(AdaPoinTr):
                 noise: torch.Tensor | None = None):
         """``bn_momentum``, ``generator`` and ``noise`` as in
         :meth:`AdaPoinTr.forward`; the momentum reaches the ResNet too."""
+        with trace.span("branch.image_encoder"):
+            img_feat = self.base_model.im_encoder(img, bn_momentum)
         return super().forward(xyz, bn_momentum=bn_momentum, generator=generator, noise=noise,
-                               img_feat=self.base_model.im_encoder(img, bn_momentum),
+                               img_feat=img_feat,
                                seg_fn=_seg_fn(self), cls_vec=cls_vec)
 
 

@@ -45,13 +45,14 @@ import time
 import numpy as np
 import torch
 
+from ..datasets.loader import LOADER_COUNTERS
 from ..models import build_model
 from ..ops import fps, mxu_eval_chamfer_active, nn_distance, random_dropping, separate_point_cloud, train_random_crop
 from ..ops.chamfer import _sqrt_floor, points_axis_sharding
 from ..parallel.dist import data_parallel
 from ..parallel.mesh import (TensorParallel, broadcast_state, clip_grad_norm, make_mesh, reduce_gradients,
                              reduce_max, reduce_mean, reduce_tensors)
-from ..utils import render
+from ..utils import render, trace
 from ..utils.average_meter import AverageMeter
 from ..utils.checkpoint import checkpoint_path, load_checkpoint, load_jax_checkpoint, save_checkpoint
 from ..utils.device import deterministic_cudnn, resolve_device
@@ -164,6 +165,7 @@ class Runner:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.optimizer = None
         self.step = 0  # train steps (batches) taken
+        self.predicts = 0  # predict calls made (the unit of their spans)
         # batches whose gradients one optimizer update sums
         self.step_per_update = int(config.get("step_per_update", 1))
         n_params = sum(p.numel() for p in self.model.parameters())
@@ -232,47 +234,57 @@ class Runner:
         its rows. The gradients are all-reduced before the clip
         (:func:`~..parallel.mesh.reduce_gradients`) and the returned losses
         are the global batch's means, the same on every rank."""
-        mesh = self.mesh
-        B = len(next(iter(batch.values())))
-        noise = self._local_rows(noise, B)
-        aug = {k: self._local_rows(v, B) if torch.is_tensor(v) and v.dim() else v
-               for k, v in (aug or {}).items()}
-        with data_parallel(mesh.data):
-            batch = self.augment(self._to_device(batch), epoch_f, aug)
-            self.model.train()
-            k = self.step_per_update
-            lr = self.lr_sched(self.step // k)
+        with trace.span("runner.train_step", unit=self.step):
+            mesh = self.mesh
+            B = len(next(iter(batch.values())))
+            noise = self._local_rows(noise, B)
+            aug = {k: self._local_rows(v, B) if torch.is_tensor(v) and v.dim() else v
+                   for k, v in (aug or {}).items()}
+            with data_parallel(mesh.data):
+                batch = self._to_device(batch)
+                with trace.span("runner.augment"):
+                    batch = self.augment(batch, epoch_f, aug)
+                self.model.train()
+                k = self.step_per_update
+                lr = self.lr_sched(self.step // k)
+                if self.step % k == 0:
+                    self.optimizer.zero_grad(set_to_none=True)
+                with deterministic_cudnn():  # bit-equal gradients from one state
+                    with trace.span("runner.forward"):
+                        ret = self.model(*self._inputs(batch), bn_momentum=self.bnm_sched(epoch_f),
+                                         generator=self.generator, noise=noise)
+                    with trace.span("runner.loss"):
+                        with points_axis_sharding(mesh.points) if mesh.sp > 1 else contextlib.nullcontext():
+                            sparse, dense = self.model.loss(ret, batch["gt"], epoch_f)
+                        total = sparse + dense
+                    with trace.span("runner.backward"):
+                        total.backward()
+            for name, p in self.model.named_parameters():
+                if p.grad is not None and any(m in name for m in ZERO_GRAD_PARAM_MARKERS):
+                    raise RuntimeError(f"{name} got a gradient: it must stay out of the graph")
+            self.step += 1
+            losses = reduce_mean(torch.stack([sparse.detach(), dense.detach(), total.detach()]), mesh.data)
+            out = {"sparse_loss": losses[0], "dense_loss": losses[1], "total_loss": losses[2], "lr": lr}
             if self.step % k == 0:
-                self.optimizer.zero_grad(set_to_none=True)
-            with deterministic_cudnn():  # bit-equal gradients from one state
-                ret = self.model(*self._inputs(batch), bn_momentum=self.bnm_sched(epoch_f),
-                                 generator=self.generator, noise=noise)
-                with points_axis_sharding(mesh.points) if mesh.sp > 1 else contextlib.nullcontext():
-                    sparse, dense = self.model.loss(ret, batch["gt"], epoch_f)
-                total = sparse + dense
-                total.backward()
-        for name, p in self.model.named_parameters():
-            if p.grad is not None and any(m in name for m in ZERO_GRAD_PARAM_MARKERS):
-                raise RuntimeError(f"{name} got a gradient: it must stay out of the graph")
-        self.step += 1
-        losses = reduce_mean(torch.stack([sparse.detach(), dense.detach(), total.detach()]), mesh.data)
-        out = {"sparse_loss": losses[0], "dense_loss": losses[1], "total_loss": losses[2], "lr": lr}
-        if self.step % k == 0:
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-            trainable = [p for p in self.model.parameters() if p.requires_grad]
-            reduce_gradients(trainable, mesh, self.tp)
-            # torch's rule is the reference's: coef = min(max_norm / (norm + 1e-6), 1)
-            out["grad_norm"] = clip_grad_norm(trainable, self.grad_clip, mesh, self.tp)
-            self.optimizer.step()
-        return out
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                with trace.span("runner.clip"):
+                    trainable = [p for p in self.model.parameters() if p.requires_grad]
+                    reduce_gradients(trainable, mesh, self.tp)
+                    # torch's rule is the reference's: coef = min(max_norm / (norm + 1e-6), 1)
+                    out["grad_norm"] = clip_grad_norm(trainable, self.grad_clip, mesh, self.tp)
+                with trace.span("runner.optimizer"):
+                    self.optimizer.step()
+            return out
 
     # -------------------------------------------------------------- eval steps
     @torch.inference_mode()
     def predict(self, batch: dict):
         """(coarse, dense) clouds of the model in eval mode for a batch on the device."""
-        self.model.eval()
-        return self.model(*self._inputs(batch))
+        with trace.span("runner.predict", unit=self.predicts):
+            self.predicts += 1
+            self.model.eval()
+            return self.model(*self._inputs(batch))
 
     @torch.inference_mode()
     def _eval_core(self, batch: dict):
@@ -441,11 +453,27 @@ def _profiler(device: torch.device):
 
 
 def _stop_profile(prof, path: str, logger) -> None:
+    """Stop ``--profile``'s profiler, write its chrome trace and log the
+    port's spans recorded meanwhile (:mod:`..utils.trace`), by name."""
     prof.stop()
     os.makedirs(path, exist_ok=True)
-    trace = os.path.join(path, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.pt.trace.json")
-    prof.export_chrome_trace(trace)
-    print_log(f"profiler trace written to {trace}", logger)
+    chrome = os.path.join(path, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(chrome)
+    print_log(f"profiler trace written to {chrome}", logger)
+    print_log(f"spans of the profiled steps:\n{trace.table()}", logger)
+
+
+def loader_line(at_start: dict) -> str:
+    """The loaders' counters (``datasets/loader.py``) since the reading
+    ``at_start``: batches handed out, the consumer's seconds waiting for
+    them, and the seconds spent decoding samples, on the wall clock and on
+    the decoding threads' CPU clocks (wall well above CPU: the decode
+    threads wait for the interpreter lock). Worker processes decode in
+    their own processes, outside these counters."""
+    now = trace.counters()
+    d = {k: now.get(k, 0) - at_start.get(k, 0) for k in LOADER_COUNTERS}
+    return (f"Loader = {d['loader.batches']:.0f} batches, wait {d['loader.wait_s']:.3f}s, "
+            f"decode {d['loader.decode_s']:.3f}s wall / {d['loader.decode_cpu_s']:.3f}s CPU")
 
 
 def run_net(args, config, writers=None) -> Runner:
@@ -484,10 +512,12 @@ def run_net(args, config, writers=None) -> Runner:
             losses = AverageMeter(["SparseLoss", "DenseLoss"])
             step_losses = []  # device scalars, fetched once at the epoch's end
             epoch_start = t0 = time.time()
+            loader_at_start = trace.counters()
             n_batches = len(train_loader)
             for idx, (_, _, batch) in enumerate(train_loader):
                 if getattr(args, "profile", False) and epoch == start_epoch:
                     if idx == PROFILE_WINDOW[0]:
+                        trace.reset()
                         profiling = _profiler(runner.device)
                         profiling.start()
                     elif idx == PROFILE_WINDOW[1] and profiling is not None:
@@ -519,7 +549,7 @@ def run_net(args, config, writers=None) -> Runner:
                 ep = losses.avg()
             print_log(
                 f"[Training] EPOCH: {epoch} EpochTime = {time.time() - epoch_start:.3f}s "
-                f"Losses = {['%.4f' % v for v in ep]}", logger,
+                f"Losses = {['%.4f' % v for v in ep]} {loader_line(loader_at_start)}", logger,
             )
             if train_writer:
                 train_writer.add_scalar("Loss/Epoch/Sparse", ep[0], epoch)

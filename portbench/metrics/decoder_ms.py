@@ -1,0 +1,8 @@
+"""Device milliseconds a unit of work of the port's decoder blocks
+(``model.decoder``; CUDA events), over the traced stretch."""
+
+from portbench.program_spans import per_unit_ms
+
+
+def read(r):
+    return per_unit_ms(r, ("model.decoder",), "device")

@@ -16,7 +16,8 @@
 - The flags: ``--deterministic`` prints JAX's notice and ``--sync_bn`` its
   own, ``--tp 2`` and ``--sp 2`` need a launch whose world they divide,
   the RSS watchdog reads the current RSS, ``--worker_mode thread`` and ``process`` give the
-  batches of 0 workers over two epochs, ``--profile`` writes a trace, the
+  batches of 0 workers over two epochs, ``--profile`` writes a trace and
+  logs the port's spans, each epoch's line counts the loader's work, the
   writers' event files hold JAX's tags, ``--wandb`` without wandb says so
   and goes on, the RSS watchdog exits 75 after ``ckpt-last`` and
   ``--resume`` ends in the state of the uninterrupted run, bit for bit, and
@@ -282,10 +283,11 @@ def _scalars(path: pathlib.Path) -> dict:
 def test_profile_writers_wandb_and_the_rss_watchdog(run_dir, small_synthetic, monkeypatch, capfd,
                                                      one_torch_thread):
     """Two epochs of 2 steps with ``--profile --wandb`` (the epoch ends
-    inside the profiler's window, which then stops with it; ``chip_smoke.py``
-    phase 10 runs the whole window); then the same run stopped by the RSS
-    watchdog after epoch 0 and resumed: the final weights, BN statistics
-    and AdamW state are the uninterrupted run's."""
+    inside the profiler's window, which then stops with it and logs the
+    port's spans of its one step; ``chip_smoke.py`` phase 10 runs the whole
+    window), each epoch's line with the loader's counters; then the same
+    run stopped by the RSS watchdog after epoch 0 and resumed: the final
+    weights, BN statistics and AdamW state are the uninterrupted run's."""
     base = ["--config", TINY, "--synthetic", "--syn_train_len", str(2 * BS_SMALL), "--device", "cpu",
             "--num_workers", "0"]
     full = port_main.main(base + ["--exp_name", "full", "--profile", "--wandb"])
@@ -294,6 +296,17 @@ def test_profile_writers_wandb_and_the_rss_watchdog(run_dir, small_synthetic, mo
     tb = run_dir / "experiments" / "AdaPoinTr-tiny" / "PCN_models" / "TFBoard" / "full"
     (trace,) = tb.glob("*.pt.trace.json")
     assert f"profiler trace written to {trace.relative_to(run_dir)}" in log
+    # the port's spans of the profiled step, by name, under the trace's line
+    table = log.split("spans of the profiled steps:\n", 1)[1].splitlines()
+    assert table[0].split() == ["span", "calls", "host", "ms", "host", "self", "device", "ms", "device", "self"]
+    rows = {line.split()[0]: line.split()[1:] for line in table[1:13]}
+    assert set(rows) == {"runner.train_step", "runner.augment", "runner.forward", "model.grouper", "model.encoder",
+                         "model.query", "model.decoder", "model.head", "runner.loss", "runner.backward",
+                         "runner.clip", "runner.optimizer"}
+    assert all(r[0] == "1" and r[3:] == ["-", "-"] for r in rows.values())  # one step; no device on the CPU
+    # each epoch's line carries the loader's counters (0 workers: the decode is the wait's)
+    epochs = [line for line in log.splitlines() if "[Training] EPOCH" in line]
+    assert len(epochs) == 2 and all("Loader = 2 batches, wait " in line for line in epochs)
     names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
     assert {"aten::sort", "aten::mm"} <= names  # the plain kNN's sort, the linear layers
     train, test = _scalars(tb / "train"), _scalars(tb / "test")
