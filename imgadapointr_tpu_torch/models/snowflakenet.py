@@ -14,6 +14,12 @@ module's docstring), ``nn.Upsample`` a ``repeat_interleave``. Parameters are
 named after the flax tree. The kernels on its path: FPS and its gathers,
 kNN (k = 16, the point itself included), the row gather of every
 ``index_points`` and, in training, the scatter-add of their backward.
+
+Spans (``utils/trace.py``): ``model.sf_extractor``, ``model.sf_seed`` (the
+seed generator and the FPS to ``num_p0``), one ``model.sf_spd`` a SPD and,
+inside them, ``model.sf_attention`` a vector attention (five a forward).
+The counter ``model.sf_attention_rows`` sums the B·N·k neighbour rows the
+vector attention builds.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from torch import nn
 
 from ..nn.layers import BatchNorm, Linear
 from ..ops import chamfer_l1, chamfer_l1_pm, fps, index_points, knn_point
+from ..utils import trace
 from .baselines import Baseline, register_baseline, set_bn_momentum
 
 
@@ -75,13 +82,16 @@ class PosAttention(nn.Module):
         self.attn2 = Linear(dim * attn_mult, dim)
 
     def forward(self, key, query, value, pos):
-        idx = knn_point(self.n_knn, pos, pos)  # each point's own index among them
-        qk_rel = query[:, :, None] - index_points(key, idx)  # (B, N, k, dim)
-        pos_rel = pos[:, :, None] - index_points(pos, idx)  # (B, N, k, 3)
-        pe = self.pos2(F.relu(self.pos_bn(self.pos1(pos_rel))))
-        a = self.attn2(F.relu(self.attn_bn(self.attn1(qk_rel + pe))))
-        a = a.softmax(dim=2)
-        return (a * (value[:, :, None] + pe)).sum(dim=2)
+        B, N, _ = pos.shape
+        trace.count("model.sf_attention_rows", B * N * self.n_knn)
+        with trace.span("model.sf_attention"):
+            idx = knn_point(self.n_knn, pos, pos)  # each point's own index among them
+            qk_rel = query[:, :, None] - index_points(key, idx)  # (B, N, k, dim)
+            pos_rel = pos[:, :, None] - index_points(pos, idx)  # (B, N, k, 3)
+            pe = self.pos2(F.relu(self.pos_bn(self.pos1(pos_rel))))
+            a = self.attn2(F.relu(self.attn_bn(self.attn1(qk_rel + pe))))
+            a = a.softmax(dim=2)
+            return (a * (value[:, :, None] + pe)).sum(dim=2)
 
 
 class SFTransformer(nn.Module):
@@ -230,13 +240,16 @@ class SnowFlakeNet(Baseline):
     def forward(self, xyz: torch.Tensor, bn_momentum: float = 0.1,
                 generator: torch.Generator | None = None, noise: torch.Tensor | None = None):
         set_bn_momentum(self, bn_momentum)
-        feat = self.feat_extractor(xyz)
-        pcd = self.decoder_coarse(feat)
-        arr = [pcd]
-        pcd = fps(torch.cat([pcd, xyz], dim=1), self.num_p0)
+        with trace.span("model.sf_extractor"):
+            feat = self.feat_extractor(xyz)
+        with trace.span("model.sf_seed"):
+            pcd = self.decoder_coarse(feat)
+            arr = [pcd]
+            pcd = fps(torch.cat([pcd, xyz], dim=1), self.num_p0)
         k_prev = None
         for i in range(self.n_up):
-            pcd, k_prev = getattr(self, f"upper{i}")(pcd, feat, k_prev)
+            with trace.span("model.sf_spd"):
+                pcd, k_prev = getattr(self, f"upper{i}")(pcd, feat, k_prev)
             arr.append(pcd)
         if self.training:
             return (*arr, xyz)

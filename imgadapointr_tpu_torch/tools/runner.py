@@ -463,17 +463,21 @@ def _stop_profile(prof, path: str, logger) -> None:
     print_log(f"spans of the profiled steps:\n{trace.table()}", logger)
 
 
-def loader_line(at_start: dict) -> str:
+def counters_line(at_start: dict) -> str:
     """The loaders' counters (``datasets/loader.py``) since the reading
     ``at_start``: batches handed out, the consumer's seconds waiting for
     them, and the seconds spent decoding samples, on the wall clock and on
     the decoding threads' CPU clocks (wall well above CPU: the decode
     threads wait for the interpreter lock). Worker processes decode in
-    their own processes, outside these counters."""
+    their own processes, outside these counters. Then the model's
+    counters that moved: SnowFlakeNet's vector-attention neighbour rows."""
     now = trace.counters()
-    d = {k: now.get(k, 0) - at_start.get(k, 0) for k in LOADER_COUNTERS}
-    return (f"Loader = {d['loader.batches']:.0f} batches, wait {d['loader.wait_s']:.3f}s, "
+    d = {k: now.get(k, 0) - at_start.get(k, 0) for k in (*LOADER_COUNTERS, "model.sf_attention_rows")}
+    line = (f"Loader = {d['loader.batches']:.0f} batches, wait {d['loader.wait_s']:.3f}s, "
             f"decode {d['loader.decode_s']:.3f}s wall / {d['loader.decode_cpu_s']:.3f}s CPU")
+    if d["model.sf_attention_rows"]:
+        line += f" Vector attention = {d['model.sf_attention_rows']:.0f} neighbour rows"
+    return line
 
 
 def run_net(args, config, writers=None) -> Runner:
@@ -549,7 +553,7 @@ def run_net(args, config, writers=None) -> Runner:
                 ep = losses.avg()
             print_log(
                 f"[Training] EPOCH: {epoch} EpochTime = {time.time() - epoch_start:.3f}s "
-                f"Losses = {['%.4f' % v for v in ep]} {loader_line(loader_at_start)}", logger,
+                f"Losses = {['%.4f' % v for v in ep]} {counters_line(loader_at_start)}", logger,
             )
             if train_writer:
                 train_writer.add_scalar("Loss/Epoch/Sparse", ep[0], epoch)
